@@ -1,0 +1,435 @@
+// One lane of the fused decide wave: probe the lane's W-way group, pick
+// the way, run the token- or leaky-bucket branch, store the new row.
+//
+// This is the per-lane body of the Hopper kernel in decide_wave.cu (the
+// port of gubernator_tpu/ops/pallas_decide.py::_make_kernel, layout
+// "fused"). It computes exactly what _wave_compute computes
+// (pallas_decide.py:201-386) for one lane, and what the plain PyTorch
+// version ops/fused.py::decide_fused_plain computes; the three are
+// bit-exact. The header also compiles as plain C++ (decide_lane_host.cc)
+// so the CPU tests run this very code against the plain version.
+//
+// int64 semantics follow JAX, not C++:
+//   - `//` and `%` floor (floor_div / floor_mod); C++ truncates. `limit`
+//     may be negative (encode clamps it to +-MAX_COUNT, a leaky item with
+//     burst 0 takes burst = limit), so _leak_fixed sees negative operands.
+//   - `<<`, `+`, `-` and `*` wrap: done in uint64_t, where C++ would have
+//     undefined behaviour on signed overflow or a negative left shift.
+//   - `>>` of a signed value is arithmetic (nvcc and g++ both do so).
+//   - argmax over the live-match mask takes the FIRST true way; argmin
+//     over the insertion score takes the FIRST minimum (strict `<`).
+// Unlike the JAX body, which computes both branches and selects, a lane
+// runs only its algorithm's branch: same result, and the ten int64
+// divisions of _leak_fixed stay off token lanes.
+#pragma once
+
+#include <stdint.h>
+
+#if defined(__CUDACC__)
+#define GUBER_HD __host__ __device__ __forceinline__
+#else
+#define GUBER_HD static inline
+#endif
+
+// Arguments of one wave; the layout is mirrored by a ctypes.Structure in
+// ops/cuda_decide.py (pointers first, then int64, then int32).
+struct GuberWaveArgs {
+  int64_t* table;  // (n_slots, 10) row-major, updated in place
+  const int64_t* key_hi;
+  const int64_t* key_lo;
+  const int32_t* group;
+  const int8_t* algo;
+  const int32_t* behavior;
+  const int64_t* hits;
+  const int64_t* limit;
+  const int64_t* duration;
+  const int64_t* rate_num;
+  const int64_t* eff_duration;
+  const int64_t* greg_expire;
+  const int64_t* burst;
+  const int64_t* created_at;
+  const uint8_t* active;
+  int8_t* out_status;
+  int64_t* out_limit;
+  int64_t* out_remaining;
+  int64_t* out_reset_time;
+  int64_t* out_slot;
+  int64_t* out_evicted_hi;
+  int64_t* out_evicted_lo;
+  uint8_t* out_freed;
+  int64_t* scalars;  // (9,) accumulated: see S_* below
+  int64_t n_slots;
+  int64_t now;
+  int32_t ways;
+  int32_t batch;
+};
+
+namespace guber {
+
+constexpr int NCOLS = 10;
+constexpr int KHI = 0, KLO = 1, META = 2, EXP = 3, LIM = 4, DUR = 5, REM = 6,
+              STM = 7, BUR = 8, INV = 9;
+constexpr int FIXED_SHIFT = 20;
+constexpr int ADMISSION_SHIFT = 20;
+constexpr int64_t MAX_ELAPSED_MS = int64_t(1) << 42;
+constexpr int64_t LRU_CLIP = (int64_t(1) << 44) - 1;
+constexpr int32_t B_GREG = 4, B_RESET = 8, B_DRAIN = 32;
+constexpr int8_t LEAKY = 1, OVER = 1, UNDER = 0;
+
+// Scalar slots (pallas_decide.py _S_*).
+constexpr int S_HITS = 0, S_MISSES = 1, S_EVICTS = 2, S_OVER = 3,
+              S_ADM_KEYS = 4, S_ADM_ADMITTED = 5, S_ADM_LIMIT = 6,
+              S_CENSUS_LIVE = 7, S_CENSUS_WASTE = 8, N_SCAL = 9;
+
+GUBER_HD int64_t wadd(int64_t a, int64_t b) {
+  return (int64_t)((uint64_t)a + (uint64_t)b);
+}
+GUBER_HD int64_t wsub(int64_t a, int64_t b) {
+  return (int64_t)((uint64_t)a - (uint64_t)b);
+}
+GUBER_HD int64_t wmul(int64_t a, int64_t b) {
+  return (int64_t)((uint64_t)a * (uint64_t)b);
+}
+GUBER_HD int64_t shl(int64_t a, int s) { return (int64_t)((uint64_t)a << s); }
+GUBER_HD int64_t imin(int64_t a, int64_t b) { return a < b ? a : b; }
+GUBER_HD int64_t imax(int64_t a, int64_t b) { return a > b ? a : b; }
+
+// Floor division and modulo, b > 0 at every call site (divisors are
+// clamped to >= 1 first, as in the JAX code).
+GUBER_HD int64_t floor_div(int64_t a, int64_t b) {
+  int64_t q = a / b;
+  if ((a % b != 0) && ((a < 0) != (b < 0))) --q;
+  return q;
+}
+GUBER_HD int64_t floor_mod(int64_t a, int64_t b) {
+  int64_t r = a % b;
+  if (r != 0 && ((r < 0) != (b < 0))) r += b;
+  return r;
+}
+
+// Twin of ops/decide.py::_leak_fixed.
+GUBER_HD int64_t leak_fixed(int64_t elapsed, int64_t limit, int64_t rate_num,
+                            int64_t burst) {
+  if (elapsed <= 0) return 0;
+  const int64_t limit_g = imax(limit, 1);
+  const int64_t rn = imax(rate_num, 1);
+  const int64_t cap_t = wadd(burst, 1);
+  const int64_t e_c = imin(imax(elapsed, 0), MAX_ELAPSED_MS);
+  const int64_t a = floor_div(e_c, rn);
+  const int64_t e = floor_mod(e_c, rn);
+  const int64_t a_lim = wadd(floor_div(cap_t, limit_g), 1);
+  const int64_t a_c = imin(a, a_lim);
+  const int64_t whole = wmul(a_c, limit);
+  const bool saturated = (a > a_lim) || (whole >= cap_t);
+  const int64_t hi = limit >> 16;
+  const int64_t lo = limit & 0xFFFF;
+  const int64_t p1 = wmul(e, hi);
+  const int64_t q1 = floor_div(p1, rn);
+  const int64_t r1 = floor_mod(p1, rn);
+  const int64_t q2 = floor_div(shl(r1, 16), rn);
+  const int64_t r2 = floor_mod(shl(r1, 16), rn);
+  const int64_t p2 = wmul(e, lo);
+  const int64_t q3 = floor_div(wadd(r2, p2), rn);
+  const int64_t r3 = floor_mod(wadd(r2, p2), rn);
+  const int64_t tok = wadd(wadd(shl(q1, 16), q2), q3);
+  const int64_t frac_s = floor_div(shl(r3, FIXED_SHIFT), rn);
+  const int64_t cap_s = shl(cap_t, FIXED_SHIFT);
+  if (saturated) return cap_s;
+  return imin(wadd(shl(wadd(whole, tok), FIXED_SHIFT), frac_s), cap_s);
+}
+
+// State of the chosen slot, zeroed when the key does not exist.
+struct SlotState {
+  int8_t algo, status;
+  int64_t limit, duration, remaining, stamp, expire_at, burst, invalid_at;
+};
+
+// Request operands of one lane.
+struct LaneReq {
+  int64_t hits, limit, duration, rate_num, eff_duration, greg_expire, burst,
+      created;
+  bool greg, reset, drain;
+};
+
+// New state and response of one lane.
+struct LaneResult {
+  bool used;
+  int8_t status_state;
+  int64_t limit, duration, remaining, stamp, expire_at, burst;
+  int8_t resp_status;
+  int64_t resp_remaining, resp_reset;
+  bool over;
+};
+
+// Twin of ops/decide.py::_token_paths for one lane.
+GUBER_HD LaneResult token_lane(const LaneReq& r, const SlotState& st,
+                               bool exists) {
+  LaneResult o;
+  const int64_t created = r.created;
+  // existing-item path
+  const bool limit_changed = st.limit != r.limit;
+  const int64_t rem0 =
+      limit_changed ? imax(wadd(st.remaining, wsub(r.limit, st.limit)), 0)
+                    : st.remaining;
+  const bool dur_changed = st.duration != r.duration;
+  const int64_t expire1 = r.greg ? r.greg_expire : wadd(st.stamp, r.duration);
+  const bool renew = dur_changed && (expire1 <= created);
+  const int64_t expire2 = renew ? wadd(created, r.duration) : expire1;
+  const int64_t stamp1 = renew ? created : st.stamp;
+  const int64_t rem1 = renew ? r.limit : rem0;
+  const int64_t new_expire = dur_changed ? expire2 : st.expire_at;
+
+  const bool m_hits0 = r.hits == 0;
+  const bool m_atlim = !m_hits0 && rem0 == 0 && r.hits > 0;
+  const bool m_exact = !m_hits0 && !m_atlim && rem1 == r.hits;
+  const bool m_over = !m_hits0 && !m_atlim && !m_exact && r.hits > rem1;
+  const bool m_cons = !m_hits0 && !m_atlim && !m_exact && !m_over;
+
+  const int64_t rem_state =
+      m_exact ? 0
+              : (m_over ? (r.drain ? 0 : rem1)
+                        : (m_cons ? wsub(rem1, r.hits) : rem1));
+  const int8_t sticky = st.status;
+  const int8_t status_state = m_atlim ? OVER : sticky;
+  const int8_t resp_status = (m_atlim || m_over) ? OVER : sticky;
+  const int64_t resp_rem =
+      m_exact ? 0
+              : (m_over ? (r.drain ? 0 : rem0)
+                        : (m_cons ? wsub(rem1, r.hits) : rem0));
+
+  // new-item path
+  const int64_t expire_new =
+      r.greg ? r.greg_expire : wadd(created, r.duration);
+  const bool over_new = r.hits > r.limit;
+  const int64_t rem_new = over_new ? r.limit : wsub(r.limit, r.hits);
+
+  // RESET_REMAINING on an existing item frees the slot
+  const bool m_reset = exists && r.reset;
+  const bool fresh = !exists || st.algo != 0;
+  const bool use_new = !m_reset && fresh;
+
+  o.used = !m_reset;
+  o.limit = r.limit;
+  o.duration = r.duration;
+  o.remaining = use_new ? rem_new : rem_state;
+  o.stamp = use_new ? created : stamp1;
+  o.expire_at = use_new ? expire_new : new_expire;
+  o.status_state = use_new ? UNDER : status_state;
+  o.burst = 0;
+  o.resp_status =
+      m_reset ? UNDER : (use_new ? (over_new ? OVER : UNDER) : resp_status);
+  o.resp_remaining = m_reset ? r.limit : (use_new ? rem_new : resp_rem);
+  o.resp_reset = m_reset ? 0 : (use_new ? expire_new : new_expire);
+  o.over = !m_reset && (use_new ? over_new : (m_atlim || m_over));
+  return o;
+}
+
+// Twin of ops/decide.py::_leaky_paths for one lane.
+GUBER_HD LaneResult leaky_lane(const LaneReq& r, const SlotState& st,
+                               bool exists) {
+  LaneResult o;
+  const int S = FIXED_SHIFT;
+  const int64_t created = r.created;
+  const bool use_new = !exists || st.algo != LEAKY;
+  o.used = true;
+  o.limit = r.limit;
+  o.status_state = 0;  // leaky has no stored status
+  o.burst = r.burst;
+  if (use_new) {
+    // new-item path; rate from the RAW duration field
+    const int64_t ri_new = floor_div(r.duration, imax(r.limit, 1));
+    const bool over_new = r.hits > r.burst;
+    const int64_t rem_new = wsub(r.burst, r.hits);
+    const int64_t resp_rem_new = over_new ? 0 : rem_new;
+    o.duration = r.eff_duration;
+    o.remaining = over_new ? 0 : shl(rem_new, S);
+    o.stamp = created;
+    o.expire_at = wadd(created, r.eff_duration);
+    o.resp_status = over_new ? OVER : UNDER;
+    o.resp_remaining = resp_rem_new;
+    o.resp_reset = wadd(created, wmul(wsub(r.limit, resp_rem_new), ri_new));
+    o.over = over_new;
+    return o;
+  }
+  // existing-item path
+  const int64_t rem_s0 = r.reset ? shl(r.burst, S) : st.remaining;
+  const bool burst_changed = st.burst != r.burst;
+  const int64_t rem_s1 =
+      (burst_changed && r.burst > (rem_s0 >> S)) ? shl(r.burst, S) : rem_s0;
+  const int64_t expire_upd =
+      r.hits != 0 ? wadd(created, r.eff_duration) : st.expire_at;
+  const int64_t elapsed = wsub(created, st.stamp);
+  const int64_t leak_s = leak_fixed(elapsed, r.limit, r.rate_num, r.burst);
+  const bool leaked = (leak_s >> S) > 0;
+  const int64_t rem_s2 = leaked ? wadd(rem_s1, leak_s) : rem_s1;
+  const int64_t stamp1 = leaked ? created : st.stamp;
+  const int64_t rem_s3 = ((rem_s2 >> S) > r.burst) ? shl(r.burst, S) : rem_s2;
+
+  const int64_t ri = floor_div(r.rate_num, imax(r.limit, 1));
+  const int64_t rem_int = rem_s3 >> S;
+
+  const bool m_atlim = rem_int == 0 && r.hits > 0;
+  const bool m_exact = !m_atlim && rem_int == r.hits;
+  const bool m_over = !m_atlim && !m_exact && r.hits > rem_int;
+  const bool m_hits0 = !m_atlim && !m_exact && !m_over && r.hits == 0;
+  const bool m_cons = !m_atlim && !m_exact && !m_over && !m_hits0;
+
+  const int64_t rem_s_final =
+      m_exact ? 0
+              : (m_over ? (r.drain ? 0 : rem_s3)
+                        : (m_cons ? wsub(rem_s3, shl(r.hits, S)) : rem_s3));
+  const int64_t resp_rem =
+      m_exact ? 0
+              : (m_over ? (r.drain ? 0 : rem_int)
+                        : (m_cons ? (rem_s_final >> S) : rem_int));
+  int64_t resp_reset;
+  if (m_exact) {
+    resp_reset = wadd(created, wmul(r.limit, ri));
+  } else if (m_cons) {
+    resp_reset = wadd(created, wmul(wsub(r.limit, rem_s_final >> S), ri));
+  } else {
+    resp_reset = wadd(created, wmul(wsub(r.limit, rem_int), ri));
+  }
+  o.duration = r.duration;  // found path stores the RAW duration
+  o.remaining = rem_s_final;
+  o.stamp = stamp1;
+  o.expire_at = expire_upd;
+  o.resp_status = (m_atlim || m_over) ? OVER : UNDER;
+  o.resp_remaining = resp_rem;
+  o.resp_reset = resp_reset;
+  o.over = m_atlim || m_over;
+  return o;
+}
+
+// One lane of the wave: writes its outputs (and, if active, its new
+// table row) and ADDS its scalar contributions to `scal`.
+GUBER_HD void decide_lane(const GuberWaveArgs& a, int j,
+                          int64_t scal[N_SCAL]) {
+  if (!a.active[j]) {
+    // Padding lane: reads nothing, writes no row (scatter-drop by
+    // omission), reports slot == n_slots.
+    a.out_status[j] = 0;
+    a.out_limit[j] = 0;
+    a.out_remaining[j] = 0;
+    a.out_reset_time[j] = 0;
+    a.out_slot[j] = a.n_slots;
+    a.out_evicted_hi[j] = 0;
+    a.out_evicted_lo[j] = 0;
+    a.out_freed[j] = 0;
+    return;
+  }
+  const int64_t now = a.now;
+  const int64_t key_hi = a.key_hi[j];
+  const int64_t key_lo = a.key_lo[j];
+  const int64_t base = (int64_t)a.group[j] * a.ways;
+  int64_t* const grp = a.table + base * NCOLS;
+
+  // Probe: the way-selection columns of the W ways (probe_ways).
+  bool exists = false;
+  int matched_way = 0, insert_way = 0;
+  int64_t best = 0, sel_cat = 0;
+  for (int w = 0; w < a.ways; ++w) {
+    const int64_t* row = grp + (int64_t)w * NCOLS;
+    const int64_t khi = row[KHI], klo = row[KLO], meta = row[META];
+    const int64_t exp = row[EXP], inv = row[INV];
+    const bool used = (meta & 1) != 0;
+    const bool expired = used && (exp < now || (inv != 0 && inv < now));
+    const bool match = used && khi == key_hi && klo == key_lo;
+    if (match && !expired && !exists) {
+      exists = true;
+      matched_way = w;
+    }
+    const int64_t cat = (match && expired) ? 0 : (!used ? 1 : (expired ? 2 : 3));
+    const int64_t lru = meta >> 4;
+    const int64_t tie = cat == 3 ? imin(imax(lru, 0), LRU_CLIP) : (int64_t)w;
+    const int64_t score = wadd(shl(cat, 44), tie);
+    if (w == 0 || score < best) {
+      best = score;
+      insert_way = w;
+      sel_cat = cat;
+    }
+  }
+  const int way = exists ? matched_way : insert_way;
+  const int64_t slot = base + way;
+  int64_t* const srow = grp + (int64_t)way * NCOLS;
+  int64_t st_row[NCOLS];
+  for (int c = 0; c < NCOLS; ++c) st_row[c] = srow[c];
+
+  const bool evicts_live = !exists && sel_cat == 3;
+  const bool old_used = (st_row[META] & 1) != 0;
+  const bool displaced =
+      !exists && old_used && (st_row[KHI] != key_hi || st_row[KLO] != key_lo);
+
+  SlotState st{};
+  if (exists) {
+    st.algo = (int8_t)((st_row[META] >> 1) & 1);
+    st.status = (int8_t)((st_row[META] >> 2) & 3);
+    st.limit = st_row[LIM];
+    st.duration = st_row[DUR];
+    st.remaining = st_row[REM];
+    st.stamp = st_row[STM];
+    st.expire_at = st_row[EXP];
+    st.burst = st_row[BUR];
+    st.invalid_at = st_row[INV];
+  }
+
+  const int32_t bhv = a.behavior[j];
+  LaneReq r;
+  r.hits = a.hits[j];
+  r.limit = a.limit[j];
+  r.duration = a.duration[j];
+  r.rate_num = a.rate_num[j];
+  r.eff_duration = a.eff_duration[j];
+  r.greg_expire = a.greg_expire[j];
+  r.burst = a.burst[j];
+  r.created = a.created_at[j];
+  r.greg = (bhv & B_GREG) != 0;
+  r.reset = (bhv & B_RESET) != 0;
+  r.drain = (bhv & B_DRAIN) != 0;
+
+  const int8_t algo = a.algo[j];
+  const bool is_leaky = algo == LEAKY;
+  const LaneResult o = is_leaky ? leaky_lane(r, st, exists) : token_lane(r, st, exists);
+
+  // The new row, stored in place (one row per active lane).
+  const bool freed = !o.used;
+  int64_t nrow[NCOLS];
+  nrow[KHI] = freed ? 0 : key_hi;
+  nrow[KLO] = freed ? 0 : key_lo;
+  nrow[META] = freed ? 0
+                     : (shl(now, 4) | ((int64_t)(o.status_state & 3) << 2) |
+                        ((int64_t)(algo & 1) << 1) | 1);
+  nrow[EXP] = o.expire_at;
+  nrow[LIM] = o.limit;
+  nrow[DUR] = o.duration;
+  nrow[REM] = o.remaining;
+  nrow[STM] = o.stamp;
+  nrow[BUR] = o.burst;
+  nrow[INV] = (exists && !freed) ? st.invalid_at : 0;
+  for (int c = 0; c < NCOLS; ++c) srow[c] = nrow[c];
+
+  a.out_status[j] = o.resp_status;
+  a.out_limit[j] = r.limit;
+  a.out_remaining[j] = o.resp_remaining;
+  a.out_reset_time[j] = o.resp_reset;
+  a.out_slot[j] = slot;
+  a.out_evicted_hi[j] = displaced ? st_row[KHI] : 0;
+  a.out_evicted_lo[j] = displaced ? st_row[KLO] : 0;
+  a.out_freed[j] = freed ? 1 : 0;
+
+  // Scalars (the wave's metrics and the WaveScan sums over written rows).
+  const bool adm_active = !freed && o.limit > 0 && o.expire_at > now;
+  const int64_t tokens = is_leaky ? (o.remaining >> ADMISSION_SHIFT) : o.remaining;
+  scal[S_HITS] += exists ? 1 : 0;
+  scal[S_MISSES] += exists ? 0 : 1;
+  scal[S_EVICTS] += evicts_live ? 1 : 0;
+  scal[S_OVER] += o.over ? 1 : 0;
+  scal[S_ADM_KEYS] += adm_active ? 1 : 0;
+  scal[S_ADM_ADMITTED] =
+      wadd(scal[S_ADM_ADMITTED], adm_active ? imax(wsub(o.limit, tokens), 0) : 0);
+  scal[S_ADM_LIMIT] = wadd(scal[S_ADM_LIMIT], adm_active ? o.limit : 0);
+  scal[S_CENSUS_LIVE] += freed ? 0 : 1;
+  scal[S_CENSUS_WASTE] += (!freed && o.expire_at <= now) ? 1 : 0;
+}
+
+}  // namespace guber

@@ -1,0 +1,277 @@
+"""Fused slot-table layout: ONE (N, 10) int64 tensor, and the plain
+PyTorch version of the decide wave.
+
+A group's W x C block is contiguous, so a lane's probe reads W
+neighbouring rows and the chosen way's state is one of them; the update
+writes one contiguous row per lane. Columns (all int64; META packs
+lru<<4 | status<<2 | algo<<1 | used, see ops/packed.py):
+
+  KHI KLO META EXP LIM DUR REM STM BUR INV
+
+`decide_fused_plain` is the twin of `gubernator_tpu/ops/fused.py`
+`_decide_fused_impl`, plus the five WaveScan sums that
+`gubernator_tpu/ops/pallas_decide.py` `_wave_compute` emits. It is the
+reference the CUDA kernel (`ops/cuda_decide.py`) is held against and
+the path a CPU table takes. Where JAX donates the table buffer, this
+version updates `table.data` IN PLACE.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from gubernator_tpu_torch.api.types import Algorithm, Behavior
+from gubernator_tpu_torch.ops.decide import _leaky_paths, _token_paths
+from gubernator_tpu_torch.ops.layout import (
+    DEFAULT_WAYS,
+    DecideOutput,
+    RequestBatch,
+    SlotTable,
+    WaveScan,
+)
+from gubernator_tpu_torch.ops.packed import (
+    META_ALGO_SHIFT,
+    META_LRU_SHIFT,
+    META_STATUS_SHIFT,
+    META_USED,
+    _pack_meta,
+)
+
+I64 = torch.int64
+
+KHI, KLO, META, EXP, LIM, DUR, REM, STM, BUR, INV = range(10)
+NCOLS = 10
+
+# Leaky `remaining` -> whole tokens for the admission sums
+# (gubernator_tpu/ops/admission.py ADMISSION_SHIFT).
+ADMISSION_SHIFT = 20
+
+# Column of the fused row that holds each wide field (META aside).
+_WIDE_COLS = {
+    "key_hi": KHI, "key_lo": KLO, "expire_at": EXP, "limit": LIM,
+    "duration": DUR, "remaining": REM, "stamp": STM, "burst": BUR,
+    "invalid_at": INV,
+}
+
+
+class FusedTable(NamedTuple):
+    """One (N, NCOLS) int64 tensor, N = groups x ways."""
+
+    data: torch.Tensor
+
+    @property
+    def num_slots(self) -> int:
+        return self.data.shape[0]
+
+    @staticmethod
+    def create(num_groups: int, ways: int = DEFAULT_WAYS, device="cuda") -> "FusedTable":
+        return FusedTable(
+            torch.zeros((num_groups * ways, NCOLS), dtype=I64, device=device)
+        )
+
+
+def _as_tensor(v) -> torch.Tensor:
+    if torch.is_tensor(v):
+        return v
+    a = np.asarray(v)
+    # torch refuses to wrap a read-only array (a JAX snapshot's columns)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
+def pack_table(wide: SlotTable, device=None) -> FusedTable:
+    """Wide -> fused (the snapshot interop). `wide` holds numpy arrays or
+    tensors; the result lives on `device` (default: where `wide` is)."""
+    col = {f: _as_tensor(v) for f, v in zip(SlotTable._fields, wide)}
+    cols = [None] * NCOLS
+    for f, c in _WIDE_COLS.items():
+        cols[c] = col[f].to(I64)
+    cols[META] = _pack_meta(col["used"], col["algo"], col["status"], col["lru"])
+    data = torch.stack(cols, dim=-1)
+    if device is not None:
+        data = data.to(device)
+    return FusedTable(data.contiguous())
+
+
+def _wide_view(rows: torch.Tensor) -> SlotTable:
+    meta = rows[:, META]
+    return SlotTable(
+        key_hi=rows[:, KHI],
+        key_lo=rows[:, KLO],
+        used=(meta & META_USED) != 0,
+        algo=((meta >> META_ALGO_SHIFT) & 1).to(torch.int8),
+        status=((meta >> META_STATUS_SHIFT) & 3).to(torch.int8),
+        limit=rows[:, LIM],
+        duration=rows[:, DUR],
+        remaining=rows[:, REM],
+        stamp=rows[:, STM],
+        expire_at=rows[:, EXP],
+        invalid_at=rows[:, INV],
+        burst=rows[:, BUR],
+        lru=meta >> META_LRU_SHIFT,
+    )
+
+
+def unpack_table(fused: FusedTable) -> SlotTable:
+    """Fused -> wide, on the table's device (the snapshot format)."""
+    return _wide_view(fused.data)
+
+
+def gather_rows_fused(table: FusedTable, slots: torch.Tensor) -> SlotTable:
+    """Rows at `slots`, expanded to the wide struct; a slot == N
+    (padding lane) reads as zeros."""
+    n = table.num_slots
+    valid = slots < n
+    rows = table.data[torch.clamp(slots, 0, n - 1)]
+    return _wide_view(torch.where(valid[:, None], rows, 0))
+
+
+def probe_ways(w_khi, w_klo, w_meta, w_exp, w_inv, batch, now):
+    """Way-selection policy over per-way (B, W) columns: returns
+    (exists, matched_way, insert_way, cat). Live match first; otherwise
+    insert by matched-expired > empty > expired > least-recently-used,
+    ties to the lowest way (argmax/argmin return the first index)."""
+    w_used = (w_meta & META_USED) != 0
+    w_lru = w_meta >> META_LRU_SHIFT
+    w_expired = w_used & ((w_exp < now) | ((w_inv != 0) & (w_inv < now)))
+    w_match = (
+        w_used
+        & (w_khi == batch.key_hi[:, None])
+        & (w_klo == batch.key_lo[:, None])
+    )
+    live_match = w_match & ~w_expired
+    exists = live_match.any(dim=1)
+    matched_way = torch.argmax(live_match.to(torch.uint8), dim=1)
+
+    cat = torch.where(
+        w_match & w_expired,
+        0,
+        torch.where(~w_used, 1, torch.where(w_expired, 2, 3)),
+    ).to(I64)
+    way_off = torch.arange(w_meta.shape[1], dtype=I64, device=w_meta.device)
+    tie = torch.where(cat == 3, torch.clamp(w_lru, 0, (1 << 44) - 1), way_off[None, :])
+    score = (cat << 44) + tie
+    insert_way = torch.argmin(score, dim=1)
+    return exists, matched_way, insert_way, cat
+
+
+def decide_fused_plain(
+    table: FusedTable, batch: RequestBatch, now: int, *, ways: int = DEFAULT_WAYS
+) -> Tuple[FusedTable, DecideOutput, WaveScan]:
+    """One decide wave in plain torch ops; updates `table.data` in place.
+
+    Inactive lanes read nothing and write nothing: their outputs are
+    zeros with slot == N, as in the JAX kernel, where every such output
+    is masked by `active`."""
+    now = int(now)
+    data = table.data
+    n = data.shape[0]
+    act = batch.active
+    group = torch.where(act, batch.group.to(I64), 0)
+    grp_base = group * ways
+    way_ix = grp_base[:, None] + torch.arange(ways, dtype=I64, device=data.device)[None, :]
+
+    rows = data[way_ix]  # (B, W, C)
+    exists, matched_way, insert_way, cat = probe_ways(
+        rows[..., KHI], rows[..., KLO], rows[..., META],
+        rows[..., EXP], rows[..., INV], batch, now,
+    )
+    way = torch.where(exists, matched_way, insert_way)
+    slot = grp_base + way
+    st_row = torch.gather(rows, 1, way[:, None, None].expand(-1, 1, NCOLS))[:, 0]
+
+    sel = torch.gather(cat, 1, insert_way[:, None])[:, 0]
+    evicts_live = ~exists & (sel == 3) & act
+
+    old_used = (st_row[:, META] & META_USED) != 0
+    displaced = (
+        act
+        & ~exists
+        & old_used
+        & ((st_row[:, KHI] != batch.key_hi) | (st_row[:, KLO] != batch.key_lo))
+    )
+    evicted_hi = torch.where(displaced, st_row[:, KHI], 0)
+    evicted_lo = torch.where(displaced, st_row[:, KLO], 0)
+
+    sel_wide = _wide_view(st_row)
+    st = {
+        k: torch.where(exists, getattr(sel_wide, k), 0)
+        for k in ("algo", "status", "limit", "duration", "remaining",
+                  "stamp", "expire_at", "burst", "invalid_at")
+    }
+
+    bhv = batch.behavior
+    b_greg = (bhv & int(Behavior.DURATION_IS_GREGORIAN)) != 0
+    b_reset = (bhv & int(Behavior.RESET_REMAINING)) != 0
+    b_drain = (bhv & int(Behavior.DRAIN_OVER_LIMIT)) != 0
+
+    tok_state, tok_resp = _token_paths(batch, st, b_greg, b_reset, b_drain, exists)
+    lky_state, lky_resp = _leaky_paths(batch, st, b_greg, b_reset, b_drain, exists)
+
+    is_leaky = batch.algo == int(Algorithm.LEAKY_BUCKET)
+    new_state = {k: torch.where(is_leaky, lky_state[k], tok_state[k]) for k in tok_state}
+    resp = {k: torch.where(is_leaky, lky_resp[k], tok_resp[k]) for k in tok_resp}
+
+    freed = ~new_state["used"]
+    cols = [None] * NCOLS
+    cols[KHI] = torch.where(freed, 0, batch.key_hi)
+    cols[KLO] = torch.where(freed, 0, batch.key_lo)
+    cols[META] = torch.where(
+        freed,
+        0,
+        _pack_meta(
+            torch.ones_like(freed), batch.algo, new_state["status"],
+            torch.full_like(batch.key_hi, now),
+        ),
+    )
+    cols[EXP] = new_state["expire_at"]
+    cols[LIM] = new_state["limit"]
+    cols[DUR] = new_state["duration"]
+    cols[REM] = new_state["remaining"]
+    cols[STM] = new_state["stamp"]
+    cols[BUR] = new_state["burst"]
+    # The store's invalidation mark survives updates on a live entry;
+    # fresh inserts and freed slots clear it.
+    cols[INV] = torch.where(exists & ~freed, st["invalid_at"], 0)
+    new_row = torch.stack([c.to(I64) for c in cols], dim=-1)  # (B, C)
+
+    # The ONE scatter, in place: distinct groups per wave -> distinct slots.
+    data[slot[act]] = new_row[act]
+    idx = torch.where(act, slot, n)
+
+    z8 = torch.zeros((), dtype=torch.int8, device=data.device)
+    out = DecideOutput(
+        status=torch.where(act, resp["status"], z8),
+        limit=torch.where(act, batch.limit, 0),
+        remaining=torch.where(act, resp["remaining"], 0),
+        reset_time=torch.where(act, resp["reset_time"], 0),
+        slot=idx,
+        evicted_hi=evicted_hi,
+        evicted_lo=evicted_lo,
+        freed=act & freed,
+        hits=(act & exists).sum(),
+        misses=(act & ~exists).sum(),
+        unexpired_evictions=evicts_live.sum(),
+        over_limit=(act & resp["over"]).sum(),
+    )
+
+    # Admission/census sums over the rows this wave WROTE, at `now`
+    # (gubernator_tpu/ops/pallas_decide.py:361-385).
+    row_used = act & ~freed
+    lim_new = new_state["limit"]
+    exp_new = new_state["expire_at"]
+    adm_active = row_used & (lim_new > 0) & (exp_new > now)
+    tokens = torch.where(
+        is_leaky, new_state["remaining"] >> ADMISSION_SHIFT, new_state["remaining"]
+    )
+    admitted = torch.where(adm_active, torch.clamp(lim_new - tokens, min=0), 0)
+    scan = WaveScan(
+        adm_keys=adm_active.sum(),
+        adm_admitted=admitted.sum(),
+        adm_limit=torch.where(adm_active, lim_new, 0).sum(),
+        census_live=row_used.sum(),
+        census_waste=(row_used & (exp_new <= now)).sum(),
+    )
+    return table, out, scan

@@ -1,0 +1,67 @@
+"""The port stands alone: it imports torch, numpy and the standard
+library, never jax and nothing of `gubernator_tpu`."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "gubernator_tpu_torch"
+
+
+def _port_modules():
+    mods = []
+    for p in sorted(PKG.rglob("*.py")):
+        rel = p.relative_to(REPO).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def _sources():
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_imports_with_jax_and_reference_package_blocked():
+    """Every module of the package imports in a fresh interpreter where
+    `import jax` and `import gubernator_tpu` fail."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['gubernator_tpu'] = None\n"
+        "import importlib\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert 'jax' not in [k for k, v in sys.modules.items() if v is not None]\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_source_imports_no_jax_or_reference_package(path):
+    """No import statement names jax or gubernator_tpu (the port keeps
+    its own copies of what it needs)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "gubernator_tpu"), (
+                f"{path}:{node.lineno} imports {n}"
+            )
