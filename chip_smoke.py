@@ -3,27 +3,47 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the port's native code from the checkout (the CUDA decide-wave
-kernel with nvcc for sm_90a and the key hasher with g++, both compilers
-started at once), then runs four phases and prints one JSON line each:
+kernel, one nvcc source holding its four configurations, for sm_90a,
+and the key hasher with g++, both compilers started at once), then
+drives it at two sizes and prints one JSON line per phase:
 
-1. build: what was compiled, with ptxas' register/spill report;
-2. kernel: the CUDA kernel against its plain PyTorch version, on the
-   card, over a 2^18-group x 8-way table (168 MB) holding 1,000,000 live
-   keys: 16 waves of 1024 lanes, bit-exact on every output field, the 9
-   scalars and the whole table (tolerance: none, all int64);
-3. main_path: `V1Service.get_rate_limits` over a CUDA `DeviceEngine`
-   holding that table, 8 calls of 1,000 items, against the same calls
-   on a CPU engine (the plain version): every response and the final
-   snapshot equal, and kernel launches equal to waves and > 0;
-4. times, over fresh waves at B = 1024: the kernel's median device time
-   per launch (CUDA events, L2 flushed before each), the median of the
-   whole launch path, the median of 5 runs of 200 back-to-back
-   launches, the kernel's device time from torch.profiler, the plain
-   version's median, the byte bound, and end-to-end decisions/s through
-   V1Service.
+- 1M (BASELINE.json config 3, "1M-key Zipfian"): a flat table of 2^18
+  groups x 8 ways holding 1,000,000 live keys; kernel configurations
+  fused (`decide_wave`, 167.8 MB) and narrow (`decide_wave_narrow`,
+  151.0 MB).
+- 10M (BASELINE.json config 5, 10M keys Zipfian, paged as in
+  docs/config.md "GUBER_TABLE_PAGE_*"): 2^22 logical groups x 8 ways
+  (33,554,432 slots) holding 10,000,000 live keys, 4,096 groups per page
+  (1,024 logical pages of 32,768 slots), 768 frames on the card (2,013
+  MB fused, 1,812 MB narrow); the other pages live in the host tier.
+  Kernel configurations fused paged (`decide_wave_paged`) and narrow
+  paged (`decide_wave_narrow_paged`).
 
-Then the card's name and power limit as nvidia-smi prints them, the
-kernel table line, and the last line
+Phases, for each size:
+
+1. kernel: each configuration against its plain PyTorch version on the
+   card, 16 waves of 1024 lanes, bit-exact on every output field, the 9
+   scalars, the whole physical table and (paged) the unchanged page map
+   (tolerance: none, all int64). The paged tables map 768 random logical
+   pages onto the frames in a scrambled order, so about a quarter of the
+   lanes are sentinel lanes.
+2. times, over fresh waves at B = 1024 (paged: groups on resident pages
+   only, as the main path runs them): the kernel's median device time
+   per launch (CUDA events, L2 flushed before each, device held busy
+   while the host enqueues), the median of the whole launch path, the
+   median of 5 runs of 200 back-to-back launches, the kernel's device
+   time from torch.profiler, the plain version's median and the byte
+   bound, which counts the live matches each timed launch found.
+3. main_path: `V1Service.get_rate_limits` over a CUDA `DeviceEngine` in
+   each configuration, 8 calls of 1,000 Zipf(1.1) items, against one CPU
+   engine (flat, fused: the plain version) on the same calls and frozen
+   clock: every response and the final snapshot equal, kernel launches
+   of that configuration equal to waves and > 0, and (paged) pages
+   promoted and demoted, with host-clock spans of the pager's
+   ensure_resident, demote and promote.
+
+Then a summary line with the wall time, the card's name and power limit
+as nvidia-smi prints them, the kernel table line, and the last line
 `{"ok": true, "device": {"platform": "gpu", ...}}`. Any failure raises
 and the script exits non-zero. It needs one card; without one it exits
 with code 2 before printing anything to stdout. The phase lines are also
@@ -40,6 +60,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -49,23 +70,40 @@ if not torch.cuda.is_available():
           file=sys.stderr)
     sys.exit(2)
 
+from gubernator_tpu_torch.api.keys import key_hash128_batch  # noqa: E402
 from gubernator_tpu_torch.api.types import RateLimitReq  # noqa: E402
-from gubernator_tpu_torch.ops import _build, cuda_decide, fused  # noqa: E402
+from gubernator_tpu_torch.ops import _build, cuda_decide, fused, narrow  # noqa: E402
 from gubernator_tpu_torch.ops.layout import (  # noqa: E402
     BATCH_DTYPES,
+    SLOT_DTYPES,
     RequestBatch,
     SlotTable,
     batch_to_device,
 )
+from gubernator_tpu_torch.ops.paged import PagedTable  # noqa: E402
 from gubernator_tpu_torch.runtime.engine import DeviceEngine, EngineConfig  # noqa: E402
 from gubernator_tpu_torch.service.server import V1Service  # noqa: E402
 from gubernator_tpu_torch.utils import clock as _clock  # noqa: E402
 
-NUM_GROUPS = 1 << 18
+
+class Size(NamedTuple):
+    name: str
+    num_groups: int
+    live_keys: int
+    page_groups: int  # 0: flat table
+    page_budget: int
+    configs: Tuple[Tuple[str, bool], ...]  # (layout, paged)
+
+
+SIZES = (
+    Size("1M", 1 << 18, 1_000_000, 0, 0, (("fused", False), ("narrow", False))),
+    Size("10M", 1 << 22, 10_000_000, 4096, 768, (("fused", True), ("narrow", True))),
+)
 WAYS = 8
-LIVE_KEYS = 1_000_000
 B = 1024
 WAVES = 16
+CALLS = 8
+ITEMS = 1000
 NOW = 1_753_700_000_000
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the
 # non-tensor float32 rate, taken as the scalar-ALU ceiling for the
@@ -77,6 +115,12 @@ SCALAR_OPS_PER_S = 67e12
 # (~40 each when emulated) and the row pack (~30). An estimate; the byte
 # bound is the larger by an order of magnitude either way.
 OPS_PER_LANE = 8 * 20 + 150 + 10 * 40 + 30
+# Row bytes per active resident lane: the probe columns of each of the W
+# ways, the rest of the chosen row (read only on a live match) and the
+# new row.
+ROW_BYTES = {"fused": (5 * 8, 5 * 8, 80), "narrow": (5 * 8, 4 * 8, 72)}
+LAYOUT = {"fused": fused, "narrow": narrow}
+CODEC = {"fused": fused.FUSED_CODEC, "narrow": narrow.NARROW_CODEC}
 OUT_DIR = "chiprun_out"
 DEVICE = torch.device("cuda", 0)
 _lines = []
@@ -92,37 +136,38 @@ def sync() -> None:
     torch.cuda.synchronize()
 
 
+def free_device() -> None:
+    sync()
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # seeded data
 
 
-def live_image(rng) -> SlotTable:
-    """Wide numpy image of the table with LIVE_KEYS keys, each in a free
-    way of its group: mixed token/leaky, expiries on both sides of NOW,
-    a few store invalidation marks."""
-    n = NUM_GROUPS * WAYS
-    cand = LIVE_KEYS + LIVE_KEYS // 8
+def live_image(rng, size: Size) -> SlotTable:
+    """Wide numpy image of the logical table with `size.live_keys` keys,
+    each in a free way of its group: mixed token/leaky, expiries on both
+    sides of NOW, a few store invalidation marks. Limits and bursts stay
+    inside the encode clamp (narrow stores them in 32 bits)."""
+    ng = size.num_groups
+    n = ng * WAYS
+    k = size.live_keys
+    cand = k + k // 8
     hi = rng.integers(1, 1 << 62, cand, dtype=np.int64)
     lo = rng.integers(0, 1 << 62, cand, dtype=np.int64)
-    grp = lo % NUM_GROUPS
+    grp = lo % ng
     order = np.argsort(grp, kind="stable")
     g_sorted = grp[order]
     first = np.searchsorted(g_sorted, g_sorted, side="left")
     rank = np.empty(cand, np.int64)
     rank[order] = np.arange(cand) - first
-    keep = np.nonzero(rank < WAYS)[0][:LIVE_KEYS]
-    if keep.size != LIVE_KEYS:
+    keep = np.nonzero(rank < WAYS)[0][:k]
+    if keep.size != k:
         raise RuntimeError(f"placed only {keep.size} keys")
     slot = grp[keep] * WAYS + rank[keep]
-    k = LIVE_KEYS
 
-    col = {f: np.zeros(n, dt) for f, dt in (
-        ("key_hi", np.int64), ("key_lo", np.int64), ("used", np.bool_),
-        ("algo", np.int8), ("status", np.int8), ("limit", np.int64),
-        ("duration", np.int64), ("remaining", np.int64), ("stamp", np.int64),
-        ("expire_at", np.int64), ("invalid_at", np.int64), ("burst", np.int64),
-        ("lru", np.int64),
-    )}
+    col = {f: np.zeros(n, SLOT_DTYPES[f]) for f in SlotTable._fields}
     leaky = rng.random(k) < 0.3
     limit = rng.integers(10, 1001, k)
     duration = rng.integers(1000, 60_001, k)
@@ -147,17 +192,18 @@ def live_image(rng) -> SlotTable:
     return SlotTable(**col)
 
 
-def smoke_wave(rng, image: SlotTable, now: int) -> RequestBatch:
-    """One full wave: 1024 distinct groups, ~60% lanes on a live key of
-    the image, the rest new keys; token/leaky, RESET_REMAINING and
-    DRAIN_OVER_LIMIT, negative and zero limits, a few Gregorian lanes
-    and inactive (padding) lanes."""
+def smoke_wave(rng, image: SlotTable, now: int, num_groups: int, groups=None) -> RequestBatch:
+    """One full wave: 1024 distinct groups (random, or `groups`), ~60%
+    lanes on a live key of the image, the rest new keys; token/leaky,
+    RESET_REMAINING and DRAIN_OVER_LIMIT, negative and zero limits, a
+    few Gregorian lanes and inactive (padding) lanes."""
     b = RequestBatch.zeros(B)
-    groups = rng.choice(NUM_GROUPS, B, replace=False).astype(np.int64)
+    if groups is None:
+        groups = rng.choice(num_groups, B, replace=False).astype(np.int64)
     way = rng.integers(0, WAYS, B)
     slot = groups * WAYS + way
     reuse = (rng.random(B) < 0.6) & image.used[slot]
-    new_lo = groups + NUM_GROUPS * rng.integers(1, 1 << 40, B)
+    new_lo = groups + num_groups * rng.integers(1, 1 << 40, B)
     b.key_hi[:] = np.where(reuse, image.key_hi[slot], rng.integers(1, 1 << 62, B))
     b.key_lo[:] = np.where(reuse, image.key_lo[slot], new_lo)
     b.group[:] = groups.astype(np.int32)
@@ -184,21 +230,94 @@ def smoke_wave(rng, image: SlotTable, now: int) -> RequestBatch:
     return b
 
 
-def wave_bytes(b: RequestBatch) -> int:
-    """Bytes one wave must move: every batch column read once, every
-    output written once, and per active lane its group's 5 probe columns
-    over the W ways, the chosen row's other 5 columns, and the new row."""
-    lanes = len(b.active)
-    active = int(np.count_nonzero(b.active))
-    batch_in = lanes * sum(np.dtype(dt).itemsize for dt in BATCH_DTYPES.values())
+def scrambled_page_map(rng, size: Size) -> np.ndarray:
+    """`page_budget` random logical pages onto the frames in a scrambled
+    order; the other pages -1 (not resident)."""
+    nlp = -(-size.num_groups // size.page_groups)
+    pm = np.full(nlp, -1, np.int32)
+    pm[rng.choice(nlp, size.page_budget, replace=False)] = rng.permutation(size.page_budget)
+    return pm
+
+
+def resident_groups(rng, size: Size, page_map: np.ndarray) -> np.ndarray:
+    """B distinct logical groups, all on pages the map holds resident:
+    the main path's case, where the pager promotes a wave's pages before
+    the wave runs, so no lane is a sentinel lane."""
+    mapped = np.nonzero(page_map >= 0)[0]
+    gpp = size.page_groups
+    idx = rng.choice(mapped.size * gpp, B, replace=False)
+    return mapped[idx // gpp] * gpp + idx % gpp
+
+
+def kernel_tables(image: SlotTable, size: Size, layout: str, page_map):
+    """(kernel table, plain table): two equal device copies of the image
+    in `layout`; paged: the frames hold the mapped logical pages."""
+    mod = LAYOUT[layout]
+    if page_map is None:
+        kt = mod.pack_table(image, device=DEVICE)
+        return kt, type(kt)(kt.data.clone())
+    ps = size.page_groups * WAYS
+    lp_of_frame = np.empty(size.page_budget, np.int64)
+    mapped = np.nonzero(page_map >= 0)[0]
+    lp_of_frame[page_map[mapped]] = mapped
+    idx = (lp_of_frame[:, None] * ps + np.arange(ps)[None, :]).ravel()
+    data = mod.pack_table(SlotTable(*(c[idx] for c in image)), device=DEVICE)
+    pm = torch.from_numpy(page_map).to(DEVICE)
+    kt = PagedTable(data, pm)
+    return kt, PagedTable(type(data)(data.data.clone()), pm.clone())
+
+
+def _rows(table) -> torch.Tensor:
+    return table.data.data if isinstance(table, PagedTable) else table.data
+
+
+def run_kernel(table, db, now: int, layout: str, gpp: int):
+    if isinstance(table, PagedTable):
+        _, out, scan = cuda_decide.decide_paged_with_scan(
+            table, db, now, layout=layout, ways=WAYS, gpp=gpp
+        )
+    else:
+        _, out, scan = cuda_decide.decide_flat_with_scan(
+            table, db, now, layout=layout, ways=WAYS
+        )
+    return out, scan
+
+
+def run_plain(table, db, now: int, layout: str, gpp: int):
+    pm = table.page_map if isinstance(table, PagedTable) else None
+    return fused.wave_plain(CODEC[layout], _rows(table), pm, db, now, ways=WAYS, gpp=gpp)
+
+
+def resident_lanes(hb: RequestBatch, size: Size, page_map) -> np.ndarray:
+    if page_map is None:
+        return np.ones(B, bool)
+    return page_map[hb.group.astype(np.int64) // size.page_groups] >= 0
+
+
+def wave_bytes(hb: RequestBatch, layout: str, resident: np.ndarray, paged: bool,
+               hits: int) -> int:
+    """Bytes one wave must move: each active lane's batch columns read
+    once (an inactive lane reads only its `active` flag), every output
+    written once, per active resident lane its group's probe columns
+    over the W ways and the new row, the rest of the chosen row for each
+    of the `hits` lanes with a live match (the only lanes that need it),
+    and (paged) one page-map word per active lane. Sentinel lanes touch
+    no row."""
+    lanes = len(hb.active)
+    active = hb.active
+    n_active = int(np.count_nonzero(active))
+    batch_in = (n_active * sum(np.dtype(dt).itemsize for dt in BATCH_DTYPES.values())
+                + (lanes - n_active) * np.dtype(BATCH_DTYPES["active"]).itemsize)
     outs = lanes * (1 + 6 * 8 + 1) + 9 * 8
-    table = active * (WAYS * 5 * 8 + 5 * 8 + fused.NCOLS * 8)
-    return batch_in + outs + table
+    probe, rest, store = ROW_BYTES[layout]
+    rows = int(np.count_nonzero(active & resident)) * (WAYS * probe + store) + hits * rest
+    pmap = n_active * 4 if paged else 0
+    return batch_in + outs + rows + pmap
 
 
-def bound_ms(b: RequestBatch):
-    t_bytes = wave_bytes(b) / HBM_BYTES_PER_S * 1e3
-    t_ops = int(np.count_nonzero(b.active)) * OPS_PER_LANE / SCALAR_OPS_PER_S * 1e3
+def bound_ms(hb, layout, resident, paged, hits):
+    t_bytes = wave_bytes(hb, layout, resident, paged, hits) / HBM_BYTES_PER_S * 1e3
+    t_ops = int(np.count_nonzero(hb.active)) * OPS_PER_LANE / SCALAR_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -211,7 +330,7 @@ def phase_build() -> None:
     _build.build(["decide_wave", "guberhash"], force=True)
     ptxas = [
         ln.strip() for ln in _build.log_path("decide_wave").read_text().splitlines()
-        if "registers" in ln or "spill" in ln
+        if "entry function" in ln or "registers" in ln or "spill" in ln
     ]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libs": ["decide_wave", "guberhash"], "ptxas": ptxas})
@@ -235,131 +354,40 @@ def _max_abs_err(ko, po, ks, ps) -> float:
     return err
 
 
-def phase_kernel(rng, image: SlotTable):
-    dev = DEVICE
-    kt = fused.pack_table(image, device=dev)
-    pt = fused.FusedTable(kt.data.clone())
+def phase_kernel(rng, image, size, layout, page_map):
+    name = cuda_decide.config_name(layout, page_map is not None)
+    kt, pt = kernel_tables(image, size, layout, page_map)
+    pm0 = kt.page_map.clone() if page_map is not None else None
+    gpp = size.page_groups
+    n = _rows(kt).shape[0]
     sync()
-    before = cuda_decide.LAUNCHES
+    before = cuda_decide.CONFIG_LAUNCHES[name]
     now = NOW
     err = 0.0
+    sentinel = 0
     for w in range(WAVES):
         now += int(rng.choice([0, 1, 250, 2000]))
-        hb = smoke_wave(rng, image, now)
-        db = batch_to_device(hb, dev)
-        kt, ko, ks = cuda_decide.decide_flat_with_scan(kt, db, now, ways=WAYS)
-        pt, po, ps = fused.decide_fused_plain(pt, db, now, ways=WAYS)
+        hb = smoke_wave(rng, image, now, size.num_groups)
+        db = batch_to_device(hb, DEVICE)
+        ko, ks = run_kernel(kt, db, now, layout, gpp)
+        po, ps = run_plain(pt, db, now, layout, gpp)
         sync()
         err = max(err, _max_abs_err(ko, po, ks, ps))
-        if not torch.equal(kt.data, pt.data):
-            rows = int((kt.data != pt.data).any(dim=1).sum())
-            raise AssertionError(f"wave {w}: table differs from the plain version in {rows} rows")
-    live = int(((kt.data[:, fused.META] & 1) != 0).sum())
-    emit({"phase": "kernel", "ok": True, "waves": WAVES, "batch": B,
-          "table_rows": kt.num_slots, "table_mb": kt.data.numel() * 8 / 1e6,
-          "live_keys_before": LIVE_KEYS, "live_keys_after": live,
-          "launches": cuda_decide.LAUNCHES - before, "max_abs_err": err,
-          "tolerance": "bit-exact (int64)"})
+        if not torch.equal(_rows(kt), _rows(pt)):
+            rows = int((_rows(kt) != _rows(pt)).any(dim=1).sum())
+            raise AssertionError(f"{name} wave {w}: table differs from the plain version in {rows} rows")
+        if pm0 is not None and not (torch.equal(kt.page_map, pm0) and torch.equal(pt.page_map, pm0)):
+            raise AssertionError(f"{name} wave {w}: the page map changed")
+        sentinel += int((db.active & (ko.slot == n)).sum())
+    live = int(((_rows(kt)[:, 2] & 1) != 0).sum())  # META is col 2 in both layouts
+    res = {"phase": "kernel", "size": size.name, "kernel": name, "ok": True,
+           "waves": WAVES, "batch": B, "table_rows": n,
+           "table_mb": _rows(kt).numel() * 8 / 1e6, "live_rows_after": live,
+           "sentinel_lanes": sentinel,
+           "launches": cuda_decide.CONFIG_LAUNCHES[name] - before,
+           "max_abs_err": err, "tolerance": "bit-exact (int64)"}
+    emit(res)
     return kt, pt, err
-
-
-def zipf_keys(rng, n: int, n_keys: int, s: float = 1.1) -> np.ndarray:
-    """n key ranks in 1..n_keys with P(k) proportional to k^-s (a Zipf
-    law bounded to the keyspace; clipping an unbounded draw would pile
-    the tail onto one key)."""
-    w = np.arange(1, n_keys + 1, dtype=np.float64) ** -s
-    return rng.choice(n_keys, n, p=w / w.sum()) + 1
-
-
-def smoke_calls(rng, n_calls=8, n_items=1000):
-    """8 calls of 1,000 items: Zipf(1.1) keys over 1M, 70% token / 30%
-    leaky, hits 1-5, limits 10-1000, durations 1-60 s, 5% RESET_REMAINING,
-    5% DRAIN_OVER_LIMIT, a few DURATION_IS_GREGORIAN items; the Zipf head
-    repeats keys inside a call, so flushes take several waves."""
-    calls = []
-    for _ in range(n_calls):
-        ks = zipf_keys(rng, n_items, LIVE_KEYS)
-        u = rng.random(n_items)
-        items = []
-        for i in range(n_items):
-            behavior = 8 if u[i] < 0.05 else (32 if u[i] < 0.10 else 0)
-            duration = int(rng.integers(1000, 60_001))
-            if rng.random() < 0.01:
-                behavior |= 4
-                duration = int(rng.choice([0, 1]))  # minutes, hours
-            items.append(dict(
-                name="smoke", unique_key=f"acct:{int(ks[i])}",
-                algorithm=int(rng.random() < 0.3), behavior=behavior,
-                duration=duration, limit=int(rng.integers(10, 1001)),
-                hits=int(rng.integers(1, 6)),
-            ))
-        calls.append(items)
-    return calls
-
-
-def phase_main_path(rng, image: SlotTable):
-    with _clock.freeze(NOW) as clk:
-        return _main_path(rng, image, clk)
-
-
-def _main_path(rng, image: SlotTable, clk):
-    """Both engines read the frozen clock (their default now_fn)."""
-    snap = {f: getattr(image, f) for f in SlotTable._fields}
-    snap["key_strings"] = {}
-    cfg = dict(num_groups=NUM_GROUPS, ways=WAYS, batch_size=B)
-    geng = DeviceEngine(EngineConfig(device=DEVICE.type, **cfg))
-    ceng = DeviceEngine(EngineConfig(device="cpu", **cfg))
-    try:
-        geng.restore(snap)
-        ceng.restore(snap)
-        gsvc, csvc = V1Service(geng), V1Service(ceng)
-        calls = smoke_calls(rng)
-        sync()
-        cuda_decide.LAUNCHES = 0
-        t_gpu = 0.0
-        gpu_resps = []
-        for items in calls:
-            t0 = time.perf_counter()
-            gpu_resps.append(asyncio.run(gsvc.get_rate_limits(
-                [RateLimitReq(**kw) for kw in items])))
-            t_gpu += time.perf_counter() - t0
-            clk.advance(700)
-        launches = cuda_decide.LAUNCHES
-        gst = geng.stats()
-        clk.advance(-700 * len(calls))
-        mismatches = 0
-        errors = 0
-        for c, items in enumerate(calls):
-            cr = asyncio.run(csvc.get_rate_limits([RateLimitReq(**kw) for kw in items]))
-            clk.advance(700)
-            for a, b in zip(gpu_resps[c], cr):
-                ta = (a.status, a.limit, a.remaining, a.reset_time, a.error)
-                tb = (b.status, b.limit, b.remaining, b.reset_time, b.error)
-                mismatches += ta != tb
-                errors += bool(a.error)
-        gs, cs = geng.snapshot(), ceng.snapshot()
-        snap_diff = [f for f in SlotTable._fields if not np.array_equal(gs[f], cs[f])]
-        if gs["key_strings"] != cs["key_strings"]:
-            snap_diff.append("key_strings")
-        decisions = sum(len(c) for c in calls)
-        res = {"phase": "main_path", "calls": len(calls), "items": decisions,
-               "flushes": gst["flushes"], "waves": gst["waves"],
-               "engine_kernel_launches": gst["kernel_launches"],
-               "launches": launches, "response_mismatches": mismatches,
-               "error_responses": errors, "snapshot_columns_differing": snap_diff,
-               "over_limit": gst["over_limit"], "cache_hits": gst["cache_hits"],
-               "cache_misses": gst["cache_misses"],
-               "unexpired_evictions": gst["unexpired_evictions"],
-               "decisions_per_s": decisions / t_gpu, "seconds": t_gpu}
-        emit(res)
-        if mismatches or snap_diff or errors:
-            raise AssertionError("main path disagrees with the CPU engine")
-        if not (launches == gst["kernel_launches"] == gst["waves"] > 0):
-            raise AssertionError("kernel launches do not match the waves")
-        return res
-    finally:
-        geng.close()
-        ceng.close()
 
 
 def _median_ms(fn, reps, flush, hold_cycles=0):
@@ -402,26 +430,43 @@ def _profiled_device_ms(fn, reps):
     return total_us / count / 1e3 if count and total_us > 0 else None
 
 
-def phase_times(rng, image, kt, pt, main):
+def phase_times(rng, image, size, layout, page_map, kt, pt, card):
     """Times at the main path's shape (B = 1024), each over fresh waves
-    of distinct groups so the group blocks come from HBM, not L2."""
-    dev = DEVICE
+    of distinct groups so the group blocks come from HBM, not L2. A
+    paged wave draws its groups from resident pages only, as the main
+    path gives them (no sentinel lanes). The bound of each launch timed
+    in (a) counts the live matches that launch found. `card` is
+    nvidia-smi's name and power limit, printed beside them."""
+    paged = page_map is not None
+    name = cuda_decide.config_name(layout, paged)
+    gpp = size.page_groups
     reps = 200
     now = NOW + 60_000
-    dbs = [(batch_to_device(smoke_wave(rng, image, now), dev), now) for _ in range(reps)]
+    hbs = [smoke_wave(rng, image, now, size.num_groups,
+                      resident_groups(rng, size, page_map) if paged else None)
+           for _ in range(reps)]
+    resident = [resident_lanes(hb, size, page_map) for hb in hbs]
+    if not all(r.all() for r in resident):
+        raise AssertionError(f"{name}: a timed wave holds a sentinel lane")
+    dbs = [batch_to_device(hb, DEVICE) for hb in hbs]
     sync()
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)  # > 50 MB L2
     state = {"i": 0}
+    timed = []  # (wave index, live-match count) of each launch in (a)
 
     def kernel():
-        db, t = dbs[state["i"] % reps]
+        i = state["i"] % reps
         state["i"] += 1
-        cuda_decide.decide_flat_with_scan(kt, db, t, ways=WAYS)
+        out, _ = run_kernel(kt, dbs[i], now, layout, gpp)
+        return i, out.hits
+
+    def kernel_a():
+        timed.append(kernel())
 
     def plain():
-        db, t = dbs[state["i"] % reps]
+        db = dbs[state["i"] % reps]
         state["i"] += 1
-        fused.decide_fused_plain(pt, db, t, ways=WAYS)
+        run_plain(pt, db, now, layout, gpp)
 
     for _ in range(10):
         kernel()
@@ -430,7 +475,7 @@ def phase_times(rng, image, kt, pt, main):
     # one, L2 flushed before each, the device held busy (~1 ms) while
     # the host enqueues, so the window holds the scalar memset and the
     # kernel only
-    k_ms = _median_ms(kernel, reps, flush, hold_cycles=2_000_000)
+    k_ms = _median_ms(kernel_a, reps, flush, hold_cycles=2_000_000)
     # (a') the same without the hold: the launch path a lone wave pays
     # (wrapper checks and allocations, ctypes call, memset, kernel)
     path_ms = _median_ms(kernel, reps, flush)
@@ -445,28 +490,237 @@ def phase_times(rng, image, kt, pt, main):
         e.record()
         e.synchronize()
         runs.append(s.elapsed_time(e) / reps)
-    run_ms = statistics.median(runs)
     # (c) the kernel's own device time, from the profiler's trace
     dev_ms = _profiled_device_ms(kernel, reps)
     plain()
     sync()
     p_ms = _median_ms(plain, 20, flush)
-    b_ms, b_by = bound_ms(smoke_wave(rng, image, now))
-    res = {"phase": "times", "kernel_ms_median": k_ms,
-           "launch_path_ms_median": path_ms, "kernel_ms_run": run_ms,
-           "kernel_ms_runs": runs,
+    hits = torch.stack([h for _, h in timed]).tolist()
+    bounds = [bound_ms(hbs[i], layout, resident[i], paged, h)
+              for (i, _), h in zip(timed, hits)]
+    b_ms = statistics.median(b for b, _ in bounds)
+    res = {"phase": "times", "size": size.name, "kernel": name,
+           "kernel_ms_median": k_ms, "launch_path_ms_median": path_ms,
+           "kernel_ms_run": statistics.median(runs), "kernel_ms_runs": runs,
            "kernel_device_ms_profiler": dev_ms, "plain_ms_median": p_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "batch": B,
-           "reps_kernel": reps, "reps_plain": 20,
-           "decisions_per_s_v1service": main["decisions_per_s"]}
+           "bound_ms": b_ms, "bound_by": bounds[0][1], "batch": B,
+           "live_matches_per_wave_median": statistics.median(hits),
+           "active_lanes_per_wave_median": statistics.median(
+               int(np.count_nonzero(hb.active)) for hb in hbs),
+           "reps_kernel": reps, "reps_plain": 20, "card": card}
     emit(res)
+    del flush
     return res
+
+
+class _Zipf:
+    """Key ranks in 1..n_keys with P(k) proportional to k^-s (a Zipf law
+    bounded to the keyspace; clipping an unbounded draw would pile the
+    tail onto one key). The CDF is built once."""
+
+    def __init__(self, n_keys: int, s: float = 1.1):
+        cdf = np.cumsum(np.arange(1, n_keys + 1, dtype=np.float64) ** -s)
+        self.cdf = cdf / cdf[-1]
+
+    def draw(self, rng, n: int) -> np.ndarray:
+        return np.searchsorted(self.cdf, rng.random(n), side="right") + 1
+
+
+def smoke_calls(rng, n_keys: int):
+    """CALLS calls of ITEMS items: Zipf(1.1) keys over n_keys, 70% token /
+    30% leaky, hits 1-5, limits 10-1000, durations 1-60 s, 5%
+    RESET_REMAINING, 5% DRAIN_OVER_LIMIT, a few DURATION_IS_GREGORIAN
+    items; the Zipf head repeats keys inside a call, so flushes take
+    several waves."""
+    zipf = _Zipf(n_keys)
+    calls = []
+    for _ in range(CALLS):
+        ks = zipf.draw(rng, ITEMS)
+        u = rng.random(ITEMS)
+        items = []
+        for i in range(ITEMS):
+            behavior = 8 if u[i] < 0.05 else (32 if u[i] < 0.10 else 0)
+            duration = int(rng.integers(1000, 60_001))
+            if rng.random() < 0.01:
+                behavior |= 4
+                duration = int(rng.choice([0, 1]))  # minutes, hours
+            items.append(dict(
+                name="smoke", unique_key=f"acct:{int(ks[i])}",
+                algorithm=int(rng.random() < 0.3), behavior=behavior,
+                duration=duration, limit=int(rng.integers(10, 1001)),
+                hits=int(rng.integers(1, 6)),
+            ))
+        calls.append(items)
+    return calls
+
+
+class _PagerSpans:
+    """Host-clock spans around an engine's pager calls, summed:
+    `ensure_resident` (all page work before a wave), `demote` (gather,
+    blocking device-to-host copy, which also waits for the decides
+    already queued, and unbind) and `promote_one` (frame, the demote it
+    may make, host packing and one host-to-device copy). The pager's
+    methods are wrapped on this one instance; the engine is unchanged."""
+
+    NAMES = ("ensure_resident", "demote", "_promote_one")
+
+    def __init__(self, pager):
+        self.s = dict.fromkeys(self.NAMES, 0.0)
+        for n in self.NAMES:
+            setattr(pager, n, self._timed(n, getattr(pager, n)))
+
+    def _timed(self, n, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.s[n] += time.perf_counter() - t0
+        return run
+
+
+def _serve(svc, calls, clk, spans=None):
+    """Every call through `svc`; returns (response tuples, seconds, and
+    each call's pager span seconds when `spans` is given)."""
+    t, out, per_call = 0.0, [], []
+    for items in calls:
+        before = dict(spans.s) if spans is not None else None
+        t0 = time.perf_counter()
+        resp = asyncio.run(svc.get_rate_limits([RateLimitReq(**kw) for kw in items]))
+        t += time.perf_counter() - t0
+        if spans is not None:
+            per_call.append({n: spans.s[n] - before[n] for n in spans.NAMES})
+        out.append([(r.status, r.limit, r.remaining, r.reset_time, r.error) for r in resp])
+        clk.advance(700)
+    clk.advance(-700 * len(calls))  # the next engine starts at the same time
+    return out, t, per_call
+
+
+def phase_main_path(rng, image: SlotTable, size: Size):
+    """One CPU reference engine (flat, fused) and, on the same calls and
+    frozen clock, a CUDA engine per configuration of the size."""
+    snap = {f: getattr(image, f) for f in SlotTable._fields}
+    snap["key_strings"] = {}
+    calls = smoke_calls(rng, size.live_keys)
+    base = dict(num_groups=size.num_groups, ways=WAYS, batch_size=B)
+    results = {}
+    with _clock.freeze(NOW) as clk:
+        ceng = DeviceEngine(EngineConfig(device="cpu", **base))
+        try:
+            ceng.restore(snap)
+            want, _, _ = _serve(V1Service(ceng), calls, clk)
+            csnap = ceng.snapshot()
+        finally:
+            ceng.close()
+        pages = None
+        if size.page_groups:
+            # a call's first wave holds each of its distinct keys once
+            keys = [[f"smoke_{kw['unique_key']}" for kw in items] for items in calls]
+            pages = [len(np.unique(key_hash128_batch(k, size.num_groups)[2] // size.page_groups))
+                     for k in keys]
+        for layout, paged in size.configs:
+            name = cuda_decide.config_name(layout, paged)
+            pcfg = dict(page_groups=size.page_groups, page_budget=size.page_budget) if paged else {}
+            geng = DeviceEngine(EngineConfig(device=DEVICE.type, layout=layout, **base, **pcfg))
+            try:
+                geng.restore(snap)
+                st0 = geng.stats()
+                spans = _PagerSpans(geng._pager) if paged else None
+                sync()
+                cuda_decide.reset_launches()
+                got, secs, per_call = _serve(V1Service(geng), calls, clk, spans)
+                launches = dict(cuda_decide.CONFIG_LAUNCHES)
+                gst = geng.stats()
+                gsnap = geng.snapshot()
+            finally:
+                geng.close()
+            mismatches = sum(a != b for gc, wc in zip(got, want) for a, b in zip(gc, wc))
+            errors = sum(bool(r[4]) for gc in got for r in gc)
+            snap_diff = [f for f in SlotTable._fields if not np.array_equal(gsnap[f], csnap[f])]
+            if gsnap["key_strings"] != csnap["key_strings"]:
+                snap_diff.append("key_strings")
+            del gsnap
+            decisions = sum(len(c) for c in calls)
+            res = {"phase": "main_path", "size": size.name, "kernel": name,
+                   "calls": len(calls), "items": decisions,
+                   "flushes": gst["flushes"], "waves": gst["waves"],
+                   "engine_kernel_launches": gst["kernel_launches"],
+                   "launches": launches[name],
+                   "other_kernel_launches": sum(launches.values()) - launches[name],
+                   "response_mismatches": mismatches, "error_responses": errors,
+                   "snapshot_columns_differing": snap_diff,
+                   "over_limit": gst["over_limit"], "cache_hits": gst["cache_hits"],
+                   "cache_misses": gst["cache_misses"],
+                   "unexpired_evictions": gst["unexpired_evictions"],
+                   "decisions_per_s": decisions / secs, "seconds": secs}
+            if paged:
+                res.update({k: gst[k] - st0[k] for k in ("promotes", "demotes", "binds")})
+                res.update(resident_pages=gst["resident_pages"], host_pages=gst["host_pages"],
+                           host_pages_after_restore=st0["host_pages"],
+                           pages_touched_first_wave=pages)
+                # demotes run inside _promote_one: a promote's own time
+                # is the difference
+                s = spans.s
+                moved_in = res["promotes"] + res["binds"]
+                res.update(
+                    ensure_resident_s=s["ensure_resident"], demote_s=s["demote"],
+                    promote_s=s["_promote_one"] - s["demote"],
+                    demote_ms_each=s["demote"] / max(res["demotes"], 1) * 1e3,
+                    promote_ms_each=(s["_promote_one"] - s["demote"]) / max(moved_in, 1) * 1e3,
+                    ensure_resident_s_per_call=[c["ensure_resident"] for c in per_call],
+                )
+            emit(res)
+            if mismatches or snap_diff or errors:
+                raise AssertionError(f"{name}: main path disagrees with the CPU engine")
+            if not (launches[name] == gst["kernel_launches"] == gst["waves"] > 0):
+                raise AssertionError(f"{name}: kernel launches do not match the waves")
+            if res["other_kernel_launches"]:
+                raise AssertionError(f"{name}: another configuration was launched")
+            if paged and not (res["promotes"] > 0 and res["demotes"] > 0):
+                raise AssertionError(f"{name}: no page was promoted and demoted")
+            results[name] = res
+            free_device()
+    return results
+
+
+def run_size(rng, size: Size, card: str):
+    """Kernel checks and times for each configuration of the size, then
+    its main path. Returns {kernel name: (kernel, times, main) lines}."""
+    image = live_image(rng, size)
+    pm = scrambled_page_map(rng, size) if size.page_groups else None
+    checked = {}
+    for layout, paged in size.configs:
+        kt, pt, err = phase_kernel(rng, image, size, layout, pm if paged else None)
+        times = phase_times(rng, image, size, layout, pm if paged else None, kt, pt, card)
+        checked[cuda_decide.config_name(layout, paged)] = (err, times)
+        del kt, pt
+        free_device()
+    main = phase_main_path(rng, image, size)
+    return {k: (err, times, main[k]) for k, (err, times) in checked.items()}
+
+
+def kernel_entry(name, layout, paged, err, times, main):
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "gubernator_tpu_torch/csrc/decide_wave.cu",
+        "replaces": "gubernator_tpu/ops/pallas_decide.py:483 "
+                    f"(_make_kernel, layout={layout}, paged={paged})",
+        "launches": main["launches"],
+        "max_abs_err": err,
+        "ms": times["kernel_ms_median"],
+        "plain_ms": times["plain_ms_median"],
+        "bound_ms": times["bound_ms"],
+        "bound_by": times["bound_by"],
+        "library_ms": None,
+    }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t0 = time.perf_counter()
     rng = np.random.default_rng(args.seed)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -478,24 +732,17 @@ def main() -> int:
           "count": torch.cuda.device_count()})
 
     phase_build()
-    image = live_image(rng)
-    kt, pt, err = phase_kernel(rng, image)
-    main_res = phase_main_path(rng, image)
-    times = phase_times(rng, image, kt, pt, main_res)
+    entries = []
+    for size in SIZES:
+        done = run_size(rng, size, smi)
+        for layout, paged in size.configs:
+            k = cuda_decide.config_name(layout, paged)
+            entries.append(kernel_entry(k, layout, paged, *done[k]))
+    emit({"phase": "summary", "wall_s": time.perf_counter() - t0,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "nvidia_smi": smi})
 
-    kernels = {"kernels": [{
-        "name": "decide_wave",
-        "route": "cuda",
-        "source": "gubernator_tpu_torch/csrc/decide_wave.cu",
-        "replaces": "gubernator_tpu/ops/pallas_decide.py:483",
-        "launches": main_res["launches"],
-        "max_abs_err": err,
-        "ms": times["kernel_ms_median"],
-        "plain_ms": times["plain_ms_median"],
-        "bound_ms": times["bound_ms"],
-        "bound_by": times["bound_by"],
-        "library_ms": None,
-    }]}
+    kernels = {"kernels": entries}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         f.write("\n".join(_lines + [json.dumps(kernels)]) + "\n")

@@ -1,13 +1,15 @@
-// One lane of the fused decide wave: probe the lane's W-way group, pick
-// the way, run the token- or leaky-bucket branch, store the new row.
+// One lane of the decide wave: probe the lane's W-way group, pick the
+// way, run the token- or leaky-bucket branch, store the new row.
 //
 // This is the per-lane body of the Hopper kernel in decide_wave.cu (the
-// port of gubernator_tpu/ops/pallas_decide.py::_make_kernel, layout
-// "fused"). It computes exactly what _wave_compute computes
-// (pallas_decide.py:201-386) for one lane, and what the plain PyTorch
-// version ops/fused.py::decide_fused_plain computes; the three are
-// bit-exact. The header also compiles as plain C++ (decide_lane_host.cc)
-// so the CPU tests run this very code against the plain version.
+// port of gubernator_tpu/ops/pallas_decide.py::_make_kernel), in four
+// static configurations: layout fused or narrow, flat or paged table
+// (template parameters of decide_lane; no run-time branch on them). It
+// computes exactly what _wave_compute computes (pallas_decide.py:201-386)
+// for one lane, and what the plain PyTorch version
+// ops/fused.py::wave_plain computes; the three are bit-exact. The header
+// also compiles as plain C++ (decide_lane_host.cc) so the CPU tests run
+// this very code against the plain version.
 //
 // int64 semantics follow JAX, not C++:
 //   - `//` and `%` floor (floor_div / floor_mod); C++ truncates. `limit`
@@ -34,7 +36,7 @@
 // Arguments of one wave; the layout is mirrored by a ctypes.Structure in
 // ops/cuda_decide.py (pointers first, then int64, then int32).
 struct GuberWaveArgs {
-  int64_t* table;  // (n_slots, 10) row-major, updated in place
+  int64_t* table;  // (n_slots, 10 or 9) row-major, updated in place
   const int64_t* key_hi;
   const int64_t* key_lo;
   const int32_t* group;
@@ -58,17 +60,17 @@ struct GuberWaveArgs {
   int64_t* out_evicted_lo;
   uint8_t* out_freed;
   int64_t* scalars;  // (9,) accumulated: see S_* below
-  int64_t n_slots;
+  const int32_t* page_map;  // (n_log_pages,) paged only: frame or -1
+  int64_t n_slots;  // physical rows of the table
   int64_t now;
   int32_t ways;
   int32_t batch;
+  int32_t gpp;  // paged only: groups per page
+  int32_t n_log_pages;  // paged only
 };
 
 namespace guber {
 
-constexpr int NCOLS = 10;
-constexpr int KHI = 0, KLO = 1, META = 2, EXP = 3, LIM = 4, DUR = 5, REM = 6,
-              STM = 7, BUR = 8, INV = 9;
 constexpr int FIXED_SHIFT = 20;
 constexpr int ADMISSION_SHIFT = 20;
 constexpr int64_t MAX_ELAPSED_MS = int64_t(1) << 42;
@@ -301,10 +303,62 @@ GUBER_HD LaneResult leaky_lane(const LaneReq& r, const SlotState& st,
   return o;
 }
 
-// One lane of the wave: writes its outputs (and, if active, its new
-// table row) and ADDS its scalar contributions to `scal`.
+
+// Column indices of the two table layouts: fused (ops/fused.py, (N, 10))
+// and narrow (ops/narrow.py, (N, 9)). Both put the way-selection columns
+// KHI KLO META EXP first; fused keeps INV at col 9, narrow at col 4 so
+// the probe reads the contiguous 5-column prefix (40 B per way).
+enum : int { LAYOUT_FUSED = 0, LAYOUT_NARROW = 1 };
+
+template <int LAYOUT>
+struct Cols;
+template <>
+struct Cols<LAYOUT_FUSED> {
+  static constexpr int NCOLS = 10;
+  static constexpr int KHI = 0, KLO = 1, META = 2, EXP = 3, LIM = 4, DUR = 5,
+                       REM = 6, STM = 7, BUR = 8, INV = 9;
+};
+template <>
+struct Cols<LAYOUT_NARROW> {
+  static constexpr int NCOLS = 9;
+  static constexpr int KHI = 0, KLO = 1, META = 2, EXP = 3, INV = 4,
+                       LIMBUR = 5, DUR = 6, REM = 7, STM = 8;
+};
+
+// Narrow's LIMBUR word: limit in the low 32 bits, burst in the high 32
+// (ops/narrow.py _pack_limbur / _unpack_limbur). Lossless inside the
+// encode clamp |limit|, |burst| <= 2^31-1; the shift wraps like JAX's.
+GUBER_HD int64_t pack_limbur(int64_t limit, int64_t burst) {
+  return (int64_t)(((uint64_t)burst << 32) | ((uint64_t)limit & 0xFFFFFFFFull));
+}
+GUBER_HD int64_t limbur_limit(int64_t word) {
+  return (int64_t)(int32_t)(uint32_t)((uint64_t)word & 0xFFFFFFFFull);
+}
+GUBER_HD int64_t limbur_burst(int64_t word) { return word >> 32; }
+
+// The way-selection columns of one way.
+struct Probe {
+  int64_t khi, klo, meta, exp, inv;
+};
+
+// One lane of the wave in one static configuration: layout LAYOUT, and
+// PAGED (the group goes through the page map) or flat. Writes the lane's
+// outputs and, if it is active and resident, its new table row; ADDS its
+// scalar contributions to `scal`.
+//
+// Paged (pallas_decide.py:418-422, :529-548): pp = page_map[g / gpp] in
+// int32; a lane whose page is not resident (pp < 0) is a SENTINEL lane.
+// It is still an active lane: it sees an all-empty group (no load), so
+// it does not exist, inserts at way 0 of category "empty" and answers
+// as a fresh bucket; it counts in misses and over_limit, never in the
+// WaveScan sums (only written rows count), stores nothing, and reports
+// slot == n_slots with no evicted key. A page index outside the map
+// (a group beyond the logical table) is treated the same way rather
+// than read out of bounds.
+template <int LAYOUT, bool PAGED>
 GUBER_HD void decide_lane(const GuberWaveArgs& a, int j,
                           int64_t scal[N_SCAL]) {
+  using C = Cols<LAYOUT>;
   if (!a.active[j]) {
     // Padding lane: reads nothing, writes no row (scatter-drop by
     // omission), reports slot == n_slots.
@@ -321,56 +375,89 @@ GUBER_HD void decide_lane(const GuberWaveArgs& a, int j,
   const int64_t now = a.now;
   const int64_t key_hi = a.key_hi[j];
   const int64_t key_lo = a.key_lo[j];
-  const int64_t base = (int64_t)a.group[j] * a.ways;
-  int64_t* const grp = a.table + base * NCOLS;
 
-  // Probe: the way-selection columns of the W ways (probe_ways).
+  // Logical -> physical group.
+  bool resident = true;
+  int64_t pgroup = a.group[j];
+  if constexpr (PAGED) {
+    const int64_t g = a.group[j];
+    const int64_t lp = floor_div(g, a.gpp);
+    const int32_t pp =
+        (lp >= 0 && lp < a.n_log_pages) ? a.page_map[lp] : int32_t(-1);
+    resident = pp >= 0;
+    // int32 arithmetic as in the Pallas kernel (wrapping, not UB)
+    const uint32_t phys = (uint32_t)pp * (uint32_t)a.gpp +
+                          (uint32_t)(int32_t)floor_mod(g, a.gpp);
+    pgroup = resident ? (int64_t)(int32_t)phys : 0;
+  }
+  const int64_t base = pgroup * a.ways;
+  int64_t* const grp = a.table + base * C::NCOLS;
+
+  // Probe: the way-selection columns of the W ways (probe_ways). An
+  // empty group (the sentinel lane's) leaves the initial values: no
+  // match, insert at way 0, category 1 (empty), zero columns.
   bool exists = false;
   int matched_way = 0, insert_way = 0;
-  int64_t best = 0, sel_cat = 0;
-  for (int w = 0; w < a.ways; ++w) {
-    const int64_t* row = grp + (int64_t)w * NCOLS;
-    const int64_t khi = row[KHI], klo = row[KLO], meta = row[META];
-    const int64_t exp = row[EXP], inv = row[INV];
-    const bool used = (meta & 1) != 0;
-    const bool expired = used && (exp < now || (inv != 0 && inv < now));
-    const bool match = used && khi == key_hi && klo == key_lo;
-    if (match && !expired && !exists) {
-      exists = true;
-      matched_way = w;
-    }
-    const int64_t cat = (match && expired) ? 0 : (!used ? 1 : (expired ? 2 : 3));
-    const int64_t lru = meta >> 4;
-    const int64_t tie = cat == 3 ? imin(imax(lru, 0), LRU_CLIP) : (int64_t)w;
-    const int64_t score = wadd(shl(cat, 44), tie);
-    if (w == 0 || score < best) {
-      best = score;
-      insert_way = w;
-      sel_cat = cat;
+  int64_t best = 0, sel_cat = 1;
+  Probe m{}, ins{};  // columns of the matched way and of the insert way
+  if (resident) {
+    for (int w = 0; w < a.ways; ++w) {
+      const int64_t* row = grp + (int64_t)w * C::NCOLS;
+      const Probe p{row[C::KHI], row[C::KLO], row[C::META], row[C::EXP],
+                    row[C::INV]};
+      const bool used = (p.meta & 1) != 0;
+      const bool expired =
+          used && (p.exp < now || (p.inv != 0 && p.inv < now));
+      const bool match = used && p.khi == key_hi && p.klo == key_lo;
+      if (match && !expired && !exists) {
+        exists = true;
+        matched_way = w;
+        m = p;
+      }
+      const int64_t cat =
+          (match && expired) ? 0 : (!used ? 1 : (expired ? 2 : 3));
+      const int64_t lru = p.meta >> 4;
+      const int64_t tie = cat == 3 ? imin(imax(lru, 0), LRU_CLIP) : (int64_t)w;
+      const int64_t score = wadd(shl(cat, 44), tie);
+      if (w == 0 || score < best) {
+        best = score;
+        insert_way = w;
+        sel_cat = cat;
+        ins = p;
+      }
     }
   }
   const int way = exists ? matched_way : insert_way;
-  const int64_t slot = base + way;
-  int64_t* const srow = grp + (int64_t)way * NCOLS;
-  int64_t st_row[NCOLS];
-  for (int c = 0; c < NCOLS; ++c) st_row[c] = srow[c];
+  const Probe sp = exists ? m : ins;  // the chosen way's probe columns
+  int64_t* const srow = grp + (int64_t)way * C::NCOLS;
 
   const bool evicts_live = !exists && sel_cat == 3;
-  const bool old_used = (st_row[META] & 1) != 0;
+  const bool old_used = (sp.meta & 1) != 0;
   const bool displaced =
-      !exists && old_used && (st_row[KHI] != key_hi || st_row[KLO] != key_lo);
+      !exists && old_used && (sp.khi != key_hi || sp.klo != key_lo);
 
+  // State of the chosen row: the probe columns already hold META EXP
+  // INV; the rest of the row is read only for a live match.
   SlotState st{};
   if (exists) {
-    st.algo = (int8_t)((st_row[META] >> 1) & 1);
-    st.status = (int8_t)((st_row[META] >> 2) & 3);
-    st.limit = st_row[LIM];
-    st.duration = st_row[DUR];
-    st.remaining = st_row[REM];
-    st.stamp = st_row[STM];
-    st.expire_at = st_row[EXP];
-    st.burst = st_row[BUR];
-    st.invalid_at = st_row[INV];
+    st.algo = (int8_t)((sp.meta >> 1) & 1);
+    st.status = (int8_t)((sp.meta >> 2) & 3);
+    st.expire_at = sp.exp;
+    st.invalid_at = sp.inv;
+    if constexpr (LAYOUT == LAYOUT_NARROW) {
+      const int64_t limbur = srow[C::LIMBUR];
+      st.limit = limbur_limit(limbur);
+      st.burst = limbur_burst(limbur);
+      st.duration = srow[C::DUR];
+      st.remaining = srow[C::REM];
+      st.stamp = srow[C::STM];
+    } else {
+      st.limit = srow[C::LIM];
+      st.duration = srow[C::DUR];
+      st.remaining = srow[C::REM];
+      st.stamp = srow[C::STM];
+      st.burst = srow[C::BUR];
+    }
   }
 
   const int32_t bhv = a.behavior[j];
@@ -391,39 +478,47 @@ GUBER_HD void decide_lane(const GuberWaveArgs& a, int j,
   const bool is_leaky = algo == LEAKY;
   const LaneResult o = is_leaky ? leaky_lane(r, st, exists) : token_lane(r, st, exists);
 
-  // The new row, stored in place (one row per active lane).
+  // The new row, stored in place by a resident lane (one row per lane).
   const bool freed = !o.used;
-  int64_t nrow[NCOLS];
-  nrow[KHI] = freed ? 0 : key_hi;
-  nrow[KLO] = freed ? 0 : key_lo;
-  nrow[META] = freed ? 0
-                     : (shl(now, 4) | ((int64_t)(o.status_state & 3) << 2) |
-                        ((int64_t)(algo & 1) << 1) | 1);
-  nrow[EXP] = o.expire_at;
-  nrow[LIM] = o.limit;
-  nrow[DUR] = o.duration;
-  nrow[REM] = o.remaining;
-  nrow[STM] = o.stamp;
-  nrow[BUR] = o.burst;
-  nrow[INV] = (exists && !freed) ? st.invalid_at : 0;
-  for (int c = 0; c < NCOLS; ++c) srow[c] = nrow[c];
+  if (resident) {
+    int64_t nrow[C::NCOLS];
+    nrow[C::KHI] = freed ? 0 : key_hi;
+    nrow[C::KLO] = freed ? 0 : key_lo;
+    nrow[C::META] = freed ? 0
+                          : (shl(now, 4) | ((int64_t)(o.status_state & 3) << 2) |
+                             ((int64_t)(algo & 1) << 1) | 1);
+    nrow[C::EXP] = o.expire_at;
+    nrow[C::INV] = (exists && !freed) ? st.invalid_at : 0;
+    if constexpr (LAYOUT == LAYOUT_NARROW) {
+      nrow[C::LIMBUR] = pack_limbur(o.limit, o.burst);
+    } else {
+      nrow[C::LIM] = o.limit;
+      nrow[C::BUR] = o.burst;
+    }
+    nrow[C::DUR] = o.duration;
+    nrow[C::REM] = o.remaining;
+    nrow[C::STM] = o.stamp;
+    for (int c = 0; c < C::NCOLS; ++c) srow[c] = nrow[c];
+  }
 
   a.out_status[j] = o.resp_status;
   a.out_limit[j] = r.limit;
   a.out_remaining[j] = o.resp_remaining;
   a.out_reset_time[j] = o.resp_reset;
-  a.out_slot[j] = slot;
-  a.out_evicted_hi[j] = displaced ? st_row[KHI] : 0;
-  a.out_evicted_lo[j] = displaced ? st_row[KLO] : 0;
+  a.out_slot[j] = resident ? base + way : a.n_slots;
+  a.out_evicted_hi[j] = displaced ? sp.khi : 0;
+  a.out_evicted_lo[j] = displaced ? sp.klo : 0;
   a.out_freed[j] = freed ? 1 : 0;
 
-  // Scalars (the wave's metrics and the WaveScan sums over written rows).
-  const bool adm_active = !freed && o.limit > 0 && o.expire_at > now;
-  const int64_t tokens = is_leaky ? (o.remaining >> ADMISSION_SHIFT) : o.remaining;
+  // Scalars: the wave's metrics over active lanes, and the WaveScan sums
+  // over the rows this wave wrote (active and resident lanes).
   scal[S_HITS] += exists ? 1 : 0;
   scal[S_MISSES] += exists ? 0 : 1;
   scal[S_EVICTS] += evicts_live ? 1 : 0;
   scal[S_OVER] += o.over ? 1 : 0;
+  if (!resident) return;
+  const bool adm_active = !freed && o.limit > 0 && o.expire_at > now;
+  const int64_t tokens = is_leaky ? (o.remaining >> ADMISSION_SHIFT) : o.remaining;
   scal[S_ADM_KEYS] += adm_active ? 1 : 0;
   scal[S_ADM_ADMITTED] =
       wadd(scal[S_ADM_ADMITTED], adm_active ? imax(wsub(o.limit, tokens), 0) : 0);

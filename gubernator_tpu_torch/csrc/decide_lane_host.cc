@@ -7,9 +7,34 @@
 
 #include "decide_lane.cuh"
 
-extern "C" int guber_decide_wave_host(const GuberWaveArgs* args) {
+namespace {
+
+template <int LAYOUT, bool PAGED>
+void run(const GuberWaveArgs* args, int64_t* s) {
+  for (int j = 0; j < args->batch; ++j)
+    guber::decide_lane<LAYOUT, PAGED>(*args, j, s);
+}
+
+}  // namespace
+
+// One wave of configuration (layout, paged), as guber_decide_wave in
+// decide_wave.cu takes them. Returns 0, or 1 for an unknown
+// configuration.
+extern "C" int guber_decide_wave_host(const GuberWaveArgs* args, int layout,
+                                      int paged) {
+  using guber::LAYOUT_FUSED;
+  using guber::LAYOUT_NARROW;
   int64_t s[guber::N_SCAL] = {0};
-  for (int j = 0; j < args->batch; ++j) guber::decide_lane(*args, j, s);
+  if (layout == LAYOUT_FUSED && paged == 0)
+    run<LAYOUT_FUSED, false>(args, s);
+  else if (layout == LAYOUT_FUSED && paged == 1)
+    run<LAYOUT_FUSED, true>(args, s);
+  else if (layout == LAYOUT_NARROW && paged == 0)
+    run<LAYOUT_NARROW, false>(args, s);
+  else if (layout == LAYOUT_NARROW && paged == 1)
+    run<LAYOUT_NARROW, true>(args, s);
+  else
+    return 1;
   for (int k = 0; k < guber::N_SCAL; ++k) args->scalars[k] = s[k];
   return 0;
 }

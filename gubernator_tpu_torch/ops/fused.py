@@ -1,5 +1,5 @@
 """Fused slot-table layout: ONE (N, 10) int64 tensor, and the plain
-PyTorch version of the decide wave.
+PyTorch version of the decide wave for every layout, flat or paged.
 
 A group's W x C block is contiguous, so a lane's probe reads W
 neighbouring rows and the chosen way's state is one of them; the update
@@ -8,17 +8,20 @@ lru<<4 | status<<2 | algo<<1 | used, see ops/packed.py):
 
   KHI KLO META EXP LIM DUR REM STM BUR INV
 
-`decide_fused_plain` is the twin of `gubernator_tpu/ops/fused.py`
-`_decide_fused_impl`, plus the five WaveScan sums that
-`gubernator_tpu/ops/pallas_decide.py` `_wave_compute` emits. It is the
+`wave_plain` is the twin of `gubernator_tpu/ops/pallas_decide.py`
+`_reference_wave` + `_wave_compute`: one wave over any layout's rows
+(described by a `RowCodec`), on a flat table or through a page map, with
+the five WaveScan sums. On a flat table it equals the layout's XLA
+program (`_decide_fused_impl`, `_decide_narrow_impl`). It is the
 reference the CUDA kernel (`ops/cuda_decide.py`) is held against and
-the path a CPU table takes. Where JAX donates the table buffer, this
-version updates `table.data` IN PLACE.
+the path a CPU table takes. `decide_fused_plain` is its fused, flat
+form. Where JAX donates the table buffer, this version updates the
+table IN PLACE.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +69,20 @@ class FusedTable(NamedTuple):
     def num_slots(self) -> int:
         return self.data.shape[0]
 
+    # Wide-compatible views (key pruning, live counts; a PagedTable
+    # forwards them), as NarrowTable's.
+    @property
+    def used(self) -> torch.Tensor:
+        return (self.data[..., META] & META_USED) != 0
+
+    @property
+    def key_hi(self) -> torch.Tensor:
+        return self.data[..., KHI]
+
+    @property
+    def key_lo(self) -> torch.Tensor:
+        return self.data[..., KLO]
+
     @staticmethod
     def create(num_groups: int, ways: int = DEFAULT_WAYS, device="cuda") -> "FusedTable":
         return FusedTable(
@@ -81,15 +98,27 @@ def _as_tensor(v) -> torch.Tensor:
     return torch.from_numpy(a if a.flags.writeable else a.copy())
 
 
-def pack_table(wide: SlotTable, device=None) -> FusedTable:
-    """Wide -> fused (the snapshot interop). `wide` holds numpy arrays or
-    tensors; the result lives on `device` (default: where `wide` is)."""
+def wide_columns(wide: SlotTable) -> dict:
+    """A wide image's columns as tensors (numpy arrays are wrapped, not
+    copied, where they are writable), plus its packed `meta` word."""
     col = {f: _as_tensor(v) for f, v in zip(SlotTable._fields, wide)}
+    col["meta"] = _pack_meta(col["used"], col["algo"], col["status"], col["lru"])
+    return col
+
+
+def _pack_rows(col: dict) -> torch.Tensor:
+    """Fused rows from wide columns (+ `meta`): (..., NCOLS) int64."""
     cols = [None] * NCOLS
     for f, c in _WIDE_COLS.items():
         cols[c] = col[f].to(I64)
-    cols[META] = _pack_meta(col["used"], col["algo"], col["status"], col["lru"])
-    data = torch.stack(cols, dim=-1)
+    cols[META] = col["meta"].to(I64)
+    return torch.stack(cols, dim=-1)
+
+
+def pack_table(wide: SlotTable, device=None) -> FusedTable:
+    """Wide -> fused (the snapshot interop). `wide` holds numpy arrays or
+    tensors; the result lives on `device` (default: where `wide` is)."""
+    data = _pack_rows(wide_columns(wide))
     if device is not None:
         data = data.to(device)
     return FusedTable(data.contiguous())
@@ -157,50 +186,87 @@ def probe_ways(w_khi, w_klo, w_meta, w_exp, w_inv, batch, now):
     return exists, matched_way, insert_way, cat
 
 
-def decide_fused_plain(
-    table: FusedTable, batch: RequestBatch, now: int, *, ways: int = DEFAULT_WAYS
-) -> Tuple[FusedTable, DecideOutput, WaveScan]:
-    """One decide wave in plain torch ops; updates `table.data` in place.
+class RowCodec(NamedTuple):
+    """How a layout stores one slot row."""
+
+    ncols: int
+    probe: Tuple[int, int, int, int, int]  # columns of KHI KLO META EXP INV
+    wide_view: Callable  # rows (B, C) -> SlotTable of (B,) tensors
+    pack_rows: Callable  # wide columns + "meta" -> rows (B, C)
+
+
+FUSED_CODEC = RowCodec(NCOLS, (KHI, KLO, META, EXP, INV), _wide_view, _pack_rows)
+
+_STATE_FIELDS = ("algo", "status", "limit", "duration", "remaining", "stamp",
+                 "expire_at", "burst", "invalid_at")
+
+
+def wave_plain(
+    codec: RowCodec,
+    data: torch.Tensor,
+    page_map: Optional[torch.Tensor],
+    batch: RequestBatch,
+    now: int,
+    *,
+    ways: int,
+    gpp: int = 0,
+) -> Tuple[DecideOutput, WaveScan]:
+    """One decide wave in plain torch ops over the (N, C) rows `data`,
+    updated in place.
+
+    Flat (`page_map` None): a lane's group is its physical group. Paged:
+    `page_map[group // gpp]` (int32, as the Pallas kernel computes it)
+    names the lane's frame, or -1; a lane on a non-resident page is a
+    sentinel lane: it sees an all-empty group, answers as a fresh bucket,
+    counts in misses and over_limit but not in the WaveScan sums, writes
+    nothing and reports slot == N (pallas_decide.py:338-343, :365,
+    :529-548). A page index outside the map is treated as non-resident.
 
     Inactive lanes read nothing and write nothing: their outputs are
     zeros with slot == N, as in the JAX kernel, where every such output
     is masked by `active`."""
     now = int(now)
-    data = table.data
     n = data.shape[0]
+    dev = data.device
     act = batch.active
-    group = torch.where(act, batch.group.to(I64), 0)
-    grp_base = group * ways
-    way_ix = grp_base[:, None] + torch.arange(ways, dtype=I64, device=data.device)[None, :]
+    group = torch.where(act, batch.group, 0)
+    if page_map is None:
+        resident = torch.ones_like(act)
+        phys = group.to(I64)
+    else:
+        lp = torch.div(group, gpp, rounding_mode="floor")
+        in_map = (lp >= 0) & (lp < page_map.shape[0])
+        pp = torch.where(in_map, page_map[torch.clamp(lp, 0, page_map.shape[0] - 1).long()], -1)
+        resident = pp >= 0
+        phys = torch.where(resident, pp * gpp + group % gpp, 0).to(I64)
+    grp_base = phys * ways
+    way_ix = grp_base[:, None] + torch.arange(ways, dtype=I64, device=dev)[None, :]
 
-    rows = data[way_ix]  # (B, W, C)
+    # the lanes' group blocks, zeroed for sentinel lanes
+    rows = torch.where(resident[:, None, None], data[way_ix], 0)  # (B, W, C)
+    c_khi, c_klo, c_meta, c_exp, c_inv = codec.probe
     exists, matched_way, insert_way, cat = probe_ways(
-        rows[..., KHI], rows[..., KLO], rows[..., META],
-        rows[..., EXP], rows[..., INV], batch, now,
+        rows[..., c_khi], rows[..., c_klo], rows[..., c_meta],
+        rows[..., c_exp], rows[..., c_inv], batch, now,
     )
     way = torch.where(exists, matched_way, insert_way)
-    slot = grp_base + way
-    st_row = torch.gather(rows, 1, way[:, None, None].expand(-1, 1, NCOLS))[:, 0]
+    st_row = torch.gather(rows, 1, way[:, None, None].expand(-1, 1, codec.ncols))[:, 0]
 
     sel = torch.gather(cat, 1, insert_way[:, None])[:, 0]
     evicts_live = ~exists & (sel == 3) & act
 
-    old_used = (st_row[:, META] & META_USED) != 0
+    old_used = (st_row[:, c_meta] & META_USED) != 0
     displaced = (
         act
         & ~exists
         & old_used
-        & ((st_row[:, KHI] != batch.key_hi) | (st_row[:, KLO] != batch.key_lo))
+        & ((st_row[:, c_khi] != batch.key_hi) | (st_row[:, c_klo] != batch.key_lo))
     )
-    evicted_hi = torch.where(displaced, st_row[:, KHI], 0)
-    evicted_lo = torch.where(displaced, st_row[:, KLO], 0)
+    evicted_hi = torch.where(displaced, st_row[:, c_khi], 0)
+    evicted_lo = torch.where(displaced, st_row[:, c_klo], 0)
 
-    sel_wide = _wide_view(st_row)
-    st = {
-        k: torch.where(exists, getattr(sel_wide, k), 0)
-        for k in ("algo", "status", "limit", "duration", "remaining",
-                  "stamp", "expire_at", "burst", "invalid_at")
-    }
+    sel_wide = codec.wide_view(st_row)
+    st = {k: torch.where(exists, getattr(sel_wide, k), 0) for k in _STATE_FIELDS}
 
     bhv = batch.behavior
     b_greg = (bhv & int(Behavior.DURATION_IS_GREGORIAN)) != 0
@@ -215,39 +281,41 @@ def decide_fused_plain(
     resp = {k: torch.where(is_leaky, lky_resp[k], tok_resp[k]) for k in tok_resp}
 
     freed = ~new_state["used"]
-    cols = [None] * NCOLS
-    cols[KHI] = torch.where(freed, 0, batch.key_hi)
-    cols[KLO] = torch.where(freed, 0, batch.key_lo)
-    cols[META] = torch.where(
-        freed,
-        0,
-        _pack_meta(
-            torch.ones_like(freed), batch.algo, new_state["status"],
-            torch.full_like(batch.key_hi, now),
+    new_row = codec.pack_rows({
+        "key_hi": torch.where(freed, 0, batch.key_hi),
+        "key_lo": torch.where(freed, 0, batch.key_lo),
+        "meta": torch.where(
+            freed,
+            0,
+            _pack_meta(
+                torch.ones_like(freed), batch.algo, new_state["status"],
+                torch.full_like(batch.key_hi, now),
+            ),
         ),
-    )
-    cols[EXP] = new_state["expire_at"]
-    cols[LIM] = new_state["limit"]
-    cols[DUR] = new_state["duration"]
-    cols[REM] = new_state["remaining"]
-    cols[STM] = new_state["stamp"]
-    cols[BUR] = new_state["burst"]
-    # The store's invalidation mark survives updates on a live entry;
-    # fresh inserts and freed slots clear it.
-    cols[INV] = torch.where(exists & ~freed, st["invalid_at"], 0)
-    new_row = torch.stack([c.to(I64) for c in cols], dim=-1)  # (B, C)
+        "expire_at": new_state["expire_at"],
+        "limit": new_state["limit"],
+        "duration": new_state["duration"],
+        "remaining": new_state["remaining"],
+        "stamp": new_state["stamp"],
+        "burst": new_state["burst"],
+        # The store's invalidation mark survives updates on a live entry;
+        # fresh inserts and freed slots clear it.
+        "invalid_at": torch.where(exists & ~freed, st["invalid_at"], 0),
+    })  # (B, C)
 
-    # The ONE scatter, in place: distinct groups per wave -> distinct slots.
-    data[slot[act]] = new_row[act]
-    idx = torch.where(act, slot, n)
+    # The ONE scatter, in place: distinct groups per wave -> distinct
+    # slots; sentinel and inactive lanes write nothing.
+    written = act & resident
+    slot = torch.where(resident, grp_base + way, n)
+    data[slot[written]] = new_row[written]
 
-    z8 = torch.zeros((), dtype=torch.int8, device=data.device)
+    z8 = torch.zeros((), dtype=torch.int8, device=dev)
     out = DecideOutput(
         status=torch.where(act, resp["status"], z8),
         limit=torch.where(act, batch.limit, 0),
         remaining=torch.where(act, resp["remaining"], 0),
         reset_time=torch.where(act, resp["reset_time"], 0),
-        slot=idx,
+        slot=torch.where(act, slot, n),
         evicted_hi=evicted_hi,
         evicted_lo=evicted_lo,
         freed=act & freed,
@@ -259,7 +327,7 @@ def decide_fused_plain(
 
     # Admission/census sums over the rows this wave WROTE, at `now`
     # (gubernator_tpu/ops/pallas_decide.py:361-385).
-    row_used = act & ~freed
+    row_used = written & ~freed
     lim_new = new_state["limit"]
     exp_new = new_state["expire_at"]
     adm_active = row_used & (lim_new > 0) & (exp_new > now)
@@ -274,4 +342,13 @@ def decide_fused_plain(
         census_live=row_used.sum(),
         census_waste=(row_used & (exp_new <= now)).sum(),
     )
+    return out, scan
+
+
+def decide_fused_plain(
+    table: FusedTable, batch: RequestBatch, now: int, *, ways: int = DEFAULT_WAYS
+) -> Tuple[FusedTable, DecideOutput, WaveScan]:
+    """One decide wave on a flat fused table in plain torch ops (the twin
+    of `_decide_fused_impl`); updates `table.data` in place."""
+    out, scan = wave_plain(FUSED_CODEC, table.data, None, batch, now, ways=ways)
     return table, out, scan

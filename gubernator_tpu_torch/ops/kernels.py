@@ -1,23 +1,25 @@
 """Layout registry: the table operations the engine calls, by layout.
 
-Only the `fused` layout is ported so far (one (N, 10) int64 tensor, see
-ops/fused.py). Its `decide` dispatches by the table's device: the CUDA
-kernel (ops/cuda_decide.py) on a CUDA table, the plain PyTorch version
-on a CPU table. Snapshots are exchanged in the wide format
+Two layouts are ported: `fused` (one (N, 10) int64 tensor, ops/fused.py)
+and `narrow` (one (N, 9) int64 tensor with a 5-column probe prefix,
+ops/narrow.py). Their `decide` dispatches by the table's device: the
+CUDA kernel (ops/cuda_decide.py) on a CUDA table, the plain PyTorch
+version on a CPU table. Snapshots are exchanged in the wide format
 (to_wide/from_wide), the same format the JAX package uses.
+`get_paged_kernels` puts either layout behind a page map (ops/paged.py).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
-from gubernator_tpu_torch.ops import cuda_decide, fused
+from gubernator_tpu_torch.ops import cuda_decide, fused, narrow
 
 # The layouts this package serves; EngineConfig.layout validates against it.
-LAYOUTS = ("fused",)
+LAYOUTS = ("fused", "narrow")
 
 # Resident bytes per table slot, by layout.
-BYTES_PER_SLOT = {"fused": 80}
+BYTES_PER_SLOT = {"fused": 80, "narrow": 72}
 
 
 class Kernels(NamedTuple):
@@ -27,23 +29,53 @@ class Kernels(NamedTuple):
     load: object  # (device) -> None: build what decide needs there
     to_wide: object  # table -> SlotTable on the table's device
     from_wide: object  # (SlotTable, device) -> table
+    gather_rows: object  # (table, slots) -> SlotTable rows (slot == N reads zeros)
 
 
-def _fused_decide(table, batch, now, ways):
-    return cuda_decide.decide_flat(table, batch, now, ways=ways)
+def _make(layout: str, module, table_cls, gather_rows) -> Kernels:
+    def decide(table, batch, now, ways):
+        return cuda_decide.decide_flat(table, batch, now, layout=layout, ways=ways)
+
+    return Kernels(
+        layout=layout,
+        create=table_cls.create,
+        decide=decide,
+        load=cuda_decide.load,
+        to_wide=module.unpack_table,
+        from_wide=module.pack_table,
+        gather_rows=gather_rows,
+    )
 
 
-_FUSED = Kernels(
-    layout="fused",
-    create=fused.FusedTable.create,
-    decide=_fused_decide,
-    load=cuda_decide.load,
-    to_wide=fused.unpack_table,
-    from_wide=fused.pack_table,
-)
+_KERNELS = {
+    "fused": _make("fused", fused, fused.FusedTable, fused.gather_rows_fused),
+    "narrow": _make("narrow", narrow, narrow.NarrowTable, narrow.gather_rows_narrow),
+}
 
 
 def get_kernels(layout: str) -> Kernels:
-    if layout == "fused":
-        return _FUSED
-    raise ValueError(f"unknown table layout {layout!r}: this package serves {LAYOUTS}")
+    try:
+        return _KERNELS[layout]
+    except KeyError:
+        raise ValueError(
+            f"unknown table layout {layout!r}: this package serves {LAYOUTS}"
+        ) from None
+
+
+def get_paged_kernels(
+    layout: str,
+    num_groups: int,
+    ways: int,
+    groups_per_page: int,
+    num_phys_pages: int,
+    device,
+):
+    """Paged addressing over `layout` (ops/paged.py): the physical table
+    holds `num_phys_pages` frames of `groups_per_page` groups, and the
+    decide kernel reads the page map to translate logical groups."""
+    get_kernels(layout)  # validates the layout
+    from gubernator_tpu_torch.ops.paged import make_paged_kernels
+
+    return make_paged_kernels(
+        layout, num_groups, ways, groups_per_page, num_phys_pages, device
+    )

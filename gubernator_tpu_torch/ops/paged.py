@@ -1,0 +1,192 @@
+"""Paged slot table: the physical table behind a device page map.
+
+The port of `gubernator_tpu/ops/paged.py`. The physical table holds
+`num_phys_pages` frames of `groups_per_page` contiguous groups; a
+device-resident int32 page map routes every logical group:
+
+    logical group g
+      -> logical page   lp = g // groups_per_page
+      -> physical frame pp = page_map[lp]         (-1: not resident)
+      -> physical group pp * groups_per_page + g % groups_per_page
+
+The decide wave does that lookup inside the CUDA kernel
+(`cuda_decide.decide_paged`, the counterpart of `pallas_decide.
+decide_paged`); a lane whose page is not resident is a sentinel lane
+that loads and stores nothing and reports slot == N. A CPU table runs
+the plain version with the same (Pallas) semantics. The runtime pager
+(`runtime/pager.py`) promotes a wave's pages before the wave runs, so
+sentinel lanes carry no live traffic.
+
+Page moves are positional: `extract_page` gathers a frame's rows as a
+wide SlotTable and `write_page` packs wide host rows back into a frame
+with one host-to-device copy, so demote -> promote is an identity on
+table state. The page ops update the table and the device map IN PLACE
+on PyTorch's current stream (JAX donates and returns new buffers); the
+caller keeps the pager's host mirror of the map in step.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from gubernator_tpu_torch.ops import cuda_decide
+from gubernator_tpu_torch.ops.kernels import BYTES_PER_SLOT, get_kernels
+from gubernator_tpu_torch.ops.layout import SlotTable
+
+
+class PagedTable(NamedTuple):
+    """The table the engine holds in place of a flat one.
+
+    data:     the layout's table over the PHYSICAL frames
+              (num_phys_pages * groups_per_page groups).
+    page_map: (num_logical_pages,) int32 on the table's device: the
+              frame of each logical page, -1 when it is not resident.
+    """
+
+    data: object
+    page_map: torch.Tensor
+
+    # Wide-compatible views over the PHYSICAL table, as the layout
+    # tables' own.
+    @property
+    def used(self) -> torch.Tensor:
+        return self.data.used
+
+    @property
+    def key_hi(self) -> torch.Tensor:
+        return self.data.key_hi
+
+    @property
+    def key_lo(self) -> torch.Tensor:
+        return self.data.key_lo
+
+    @property
+    def num_slots(self) -> int:
+        return self.data.num_slots
+
+
+class PagedKernels(NamedTuple):
+    """The `ops.kernels.Kernels` fields the engine calls (same names and
+    signatures), plus the page ops and geometry the pager needs.
+    `from_wide` raises: a paged table is restored page by page
+    (`write_page`), not from one flat wide image."""
+
+    layout: str
+    create: object  # (*ignored) -> PagedTable: zeroed frames, empty map
+    decide: object  # (pt, batch, now, ways) -> (pt, DecideOutput), in place
+    load: object  # (device) -> None: build what decide needs there
+    to_wide: object  # pt -> SlotTable view of the PHYSICAL table
+    from_wide: object  # raises NotImplementedError
+    bytes_per_slot: int
+    # --- page ops (in place; each returns the PagedTable) ---
+    bind_page: object  # (pt, lp, pp) -> pt: zero frame pp, map lp -> pp
+    unbind_page: object  # (pt, lp, pp) -> pt: zero frame pp, map lp -> -1
+    extract_page: object  # (pt, pp) -> SlotTable rows (page_slots,), a copy
+    write_page: object  # (pt, lp, pp, wide rows) -> pt, map lp -> pp
+    # --- geometry ---
+    ways: int
+    groups_per_page: int
+    page_slots: int  # groups_per_page * ways
+    num_phys_pages: int
+    num_logical_pages: int
+    num_logical_groups: int
+
+
+def logical_page_of(group: int, groups_per_page: int) -> int:
+    """Host-side logical-page index of one group (pager bookkeeping)."""
+    return group // groups_per_page
+
+
+def make_paged_kernels(
+    layout: str,
+    num_groups: int,
+    ways: int,
+    groups_per_page: int,
+    num_phys_pages: int,
+    device="cuda",
+) -> PagedKernels:
+    """The paged kernel set for `layout` with a fixed geometry.
+
+    num_groups:      LOGICAL group count (the keyspace the engine hashes
+                     into, as for a flat table).
+    groups_per_page: page granularity; the last logical page may be
+                     partly used when num_groups is not a multiple.
+    num_phys_pages:  resident-page budget: the device holds
+                     num_phys_pages * groups_per_page * ways slots.
+    device:          where `create` puts the frames and the page map.
+    """
+    if groups_per_page <= 0:
+        raise ValueError(f"groups_per_page must be > 0: {groups_per_page}")
+    if num_phys_pages <= 0:
+        raise ValueError(f"num_phys_pages must be > 0: {num_phys_pages}")
+    base = get_kernels(layout)
+    gpp = groups_per_page
+    page_slots = gpp * ways
+    num_logical_pages = -(-num_groups // gpp)  # ceil
+    num_phys_groups = num_phys_pages * gpp
+
+    def _frame(pt, pp) -> torch.Tensor:
+        start = int(pp) * page_slots
+        return pt.data.data[start:start + page_slots]
+
+    def _decide(pt, batch, now, w=ways):
+        if w != ways:
+            raise ValueError(f"this paged table has {ways} ways, not {w}")
+        return cuda_decide.decide_paged(pt, batch, now, layout=layout, ways=ways, gpp=gpp)
+
+    def _bind_page(pt, lp, pp):
+        _frame(pt, pp).zero_()
+        pt.page_map[int(lp)] = int(pp)
+        return pt
+
+    def _unbind_page(pt, lp, pp):
+        # Zero the evacuated frame too: key pruning scans the PHYSICAL
+        # table and must not see ghost rows.
+        _frame(pt, pp).zero_()
+        pt.page_map[int(lp)] = -1
+        return pt
+
+    def _extract_page(pt, pp):
+        dev = pt.page_map.device
+        slots = int(pp) * page_slots + torch.arange(page_slots, dtype=torch.int64, device=dev)
+        return base.gather_rows(pt.data, slots)
+
+    def _write_page(pt, lp, pp, rows_wide):
+        host = base.from_wide(SlotTable(*rows_wide), None)  # packed where the rows are
+        _frame(pt, pp).copy_(host.data)  # one host-to-device copy
+        pt.page_map[int(lp)] = int(pp)
+        return pt
+
+    def _create(*_a, **_k) -> PagedTable:
+        return PagedTable(
+            data=base.create(num_phys_groups, ways, device),
+            page_map=torch.full((num_logical_pages,), -1, dtype=torch.int32, device=device),
+        )
+
+    def _from_wide(*_a, **_k):
+        raise NotImplementedError(
+            "paged tables restore page by page (write_page), not from one "
+            "flat wide image: see DeviceEngine.restore's paged path"
+        )
+
+    return PagedKernels(
+        layout=layout,
+        create=_create,
+        decide=_decide,
+        load=base.load,
+        to_wide=lambda pt: base.to_wide(pt.data),
+        from_wide=_from_wide,
+        bytes_per_slot=BYTES_PER_SLOT[layout],
+        bind_page=_bind_page,
+        unbind_page=_unbind_page,
+        extract_page=_extract_page,
+        write_page=_write_page,
+        ways=ways,
+        groups_per_page=gpp,
+        page_slots=page_slots,
+        num_phys_pages=num_phys_pages,
+        num_logical_pages=num_logical_pages,
+        num_logical_groups=num_groups,
+    )

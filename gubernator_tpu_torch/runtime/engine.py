@@ -18,10 +18,19 @@ decide calls. Group granularity also makes every wave's row stores
 disjoint. A flush holds at most `max_waves` waves; the rest carries to
 the next flush in arrival order.
 
+Paged table (`page_groups > 0`, docs/architecture.md "Paged table"):
+the device holds `page_budget` frames of `page_groups` groups behind a
+page map (ops/paged.py), and the host tier holds demoted pages
+(runtime/pager.py). Before each wave's copy to the device and its
+decide, the pager makes every page the wave touches resident, demoting
+the least recently touched pages when no frame is free. Pages demote
+only on that demand: the JAX engine's background demoter waits for the
+table census.
+
 Thread model: callers on any thread enqueue; one pump thread assembles,
 runs the waves, reads the decisions back and resolves futures. Only the
 pump touches the table during serving (`snapshot`/`restore` take the
-same lock).
+same lock, which also guards the pager).
 """
 
 from __future__ import annotations
@@ -46,7 +55,7 @@ from gubernator_tpu_torch.api.types import (
 )
 from gubernator_tpu_torch.ops import cuda_decide
 from gubernator_tpu_torch.ops.encode import EncodeError, encode_one, encode_rows
-from gubernator_tpu_torch.ops.kernels import LAYOUTS, get_kernels
+from gubernator_tpu_torch.ops.kernels import LAYOUTS, get_kernels, get_paged_kernels
 from gubernator_tpu_torch.ops.layout import (
     SLOT_DTYPES,
     RequestBatch,
@@ -54,6 +63,7 @@ from gubernator_tpu_torch.ops.layout import (
     batch_prefix,
     batch_to_device,
 )
+from gubernator_tpu_torch.runtime.pager import Pager, wide_zeros
 from gubernator_tpu_torch.utils import clock as _clock
 
 
@@ -80,7 +90,18 @@ class EngineConfig:
     # Where the table lives. "cuda" (the default) requires a GPU and
     # raises without one; pass "cpu" to run the plain version on the CPU.
     device: str = "cuda"
-    layout: str = "fused"
+    layout: str = "fused"  # "fused" or "narrow"
+    # ---- paged table (GUBER_TABLE_PAGE_*) ----
+    # Groups per page: 0 keeps the flat table; > 0 carves the device
+    # table into pages behind a page map, with a host cold tier for
+    # demoted pages. num_groups stays the logical keyspace.
+    page_groups: int = 0
+    # Resident frames on the device; required > 0 when page_groups > 0.
+    # Device table bytes = page_budget x page_groups x ways x bytes/slot.
+    page_budget: int = 0
+    # Background demoter cadence. The demoter is gated by the table
+    # census, which is not ported: only 0 (demand demotes) is served.
+    page_demote_interval_s: float = 0.0
 
 
 class _WaveAssembler:
@@ -189,7 +210,26 @@ class DeviceEngine:
             raise ValueError(f"device must be cuda or cpu, not {self.device}")
         self.cfg = cfg
         self.now_fn = now_fn
-        self.K = get_kernels(cfg.layout)
+        self._pager: Optional[Pager] = None
+        if cfg.page_groups > 0:
+            if cfg.page_budget <= 0:
+                raise ValueError("page_budget must be > 0 when page_groups > 0")
+            if cfg.page_groups > cfg.num_groups:
+                raise ValueError(
+                    f"page_groups ({cfg.page_groups}) exceeds num_groups ({cfg.num_groups})"
+                )
+            if cfg.page_demote_interval_s > 0:
+                raise NotImplementedError(
+                    "page_demote_interval_s > 0: the background demoter comes "
+                    "with the table-census slice; pass 0 (pages demote on demand)"
+                )
+            self.K = get_paged_kernels(
+                cfg.layout, cfg.num_groups, cfg.ways, cfg.page_groups,
+                cfg.page_budget, self.device,
+            )
+            self._pager = Pager(self.K)
+        else:
+            self.K = get_kernels(cfg.layout)
         self.K.load(self.device)
         self.table = self.K.create(cfg.num_groups, cfg.ways, self.device)
 
@@ -284,9 +324,17 @@ class DeviceEngine:
     def stats(self) -> dict:
         """Counters: flushes, waves, kernel_launches, requests, and the
         decide metrics (cache hits/misses, unexpired evictions,
-        over-limit answers)."""
+        over-limit answers); with a paged table also the pager's
+        promotes, demotes, binds, resident_pages and host_pages."""
         with self._stats_lock:
-            return dict(self._stats)
+            out = dict(self._stats)
+        pager = self._pager
+        if pager is not None:
+            out.update(
+                promotes=pager.promotes, demotes=pager.demotes, binds=pager.binds,
+                resident_pages=pager.resident_count(), host_pages=pager.host_count(),
+            )
+        return out
 
     # -- pump ----------------------------------------------------------------
 
@@ -475,6 +523,13 @@ class DeviceEngine:
         with self._lock:
             try:
                 for wb in waves:
+                    if self._pager is not None:
+                        # Promote every page this wave touches BEFORE its
+                        # decide, from the host batch (a wave over the
+                        # budget raises PageBudgetError).
+                        self.table = self._pager.ensure_resident(
+                            self.table, self._pager.touched_pages(wb.group, wb.active)
+                        )
                     db = batch_to_device(wb, self.device)
                     before = cuda_decide.thread_launches()
                     self.table, out = self.K.decide(self.table, db, now, self.cfg.ways)
@@ -513,7 +568,10 @@ class DeviceEngine:
             used = wide.used.cpu().numpy()
             hi = wide.key_hi.cpu().numpy()[used]
             lo = wide.key_lo.cpu().numpy()[used]
-        live = set(zip(hi.tolist(), lo.tolist()))
+            # Demoted keys are still live: their pages promote back
+            # verbatim, so their strings survive the prune.
+            host_keys = self._pager.host_live_keys() if self._pager is not None else set()
+        live = set(zip(hi.tolist(), lo.tolist())) | host_keys
         with self._keys_lock:
             self._key_strings = {
                 k: v for k, v in self._key_strings.items() if k in live
@@ -524,20 +582,46 @@ class DeviceEngine:
     def snapshot(self) -> dict:
         """Device -> host snapshot: the wide columns as numpy arrays plus
         `key_strings` ({(hi, lo): key}), the format
-        `gubernator_tpu.runtime.engine.MeshEngine.snapshot()` returns."""
+        `gubernator_tpu.runtime.engine.MeshEngine.snapshot()` returns.
+
+        Paged table: the LOGICAL wide image (resident frames and host-tier
+        pages placed at their logical offsets), identical to a flat
+        table's snapshot of the same keys."""
         with self._lock:
             wide = self.K.to_wide(self.table)
             host = {
                 f: getattr(wide, f).to("cpu", copy=True).numpy()
                 for f in SlotTable._fields
             }
+            if self._pager is not None:
+                host = self._logical_image(host)
         with self._keys_lock:
             host["key_strings"] = dict(self._key_strings)
         return host
 
+    def _logical_image(self, phys: dict) -> dict:
+        """The physical frames' wide rows and the host tier, placed by
+        logical page and trimmed to the logical slot count (lock held)."""
+        ps = self.K.page_slots
+        host = wide_zeros(self.K.num_logical_pages * ps)
+        pager = self._pager
+        for lp in np.nonzero(pager.page_map >= 0)[0].tolist():
+            pp = int(pager.page_map[lp])
+            for f in SlotTable._fields:
+                host[f][lp * ps:(lp + 1) * ps] = phys[f][pp * ps:(pp + 1) * ps]
+        for lp, rows in pager.host_tier.items():
+            for f in SlotTable._fields:
+                host[f][lp * ps:(lp + 1) * ps] = rows[f]
+        n_logical = self.cfg.num_groups * self.cfg.ways
+        return {f: a[:n_logical] for f, a in host.items()}
+
     def restore(self, snap: dict) -> None:
         """Host -> device restore from a snapshot dict (this engine's or
-        the JAX package's). Replaces the table and the key dictionary."""
+        the JAX package's). Replaces the table and the key dictionary.
+
+        Paged table: pages holding live rows fill the frames in logical
+        order; the overflow goes to the host tier, so nothing is dropped
+        when the image holds more live pages than the budget."""
         n = self.cfg.num_groups * self.cfg.ways
         wide = SlotTable(**{
             f: np.asarray(snap[f], dtype=SLOT_DTYPES[f]) for f in SlotTable._fields
@@ -546,8 +630,33 @@ class DeviceEngine:
             raise ValueError(
                 f"snapshot holds {wide.num_slots} slots; this engine has {n}"
             )
-        table = self.K.from_wide(wide, self.device)
-        with self._lock:
-            self.table = table
+        if self._pager is not None:
+            self._restore_paged(wide)
+        else:
+            table = self.K.from_wide(wide, self.device)
+            with self._lock:
+                self.table = table
         with self._keys_lock:
             self._key_strings = dict(snap.get("key_strings", {}))
+
+    def _restore_paged(self, wide: SlotTable) -> None:
+        PK = self.K
+        ps = PK.page_slots
+        n = wide.num_slots
+        with self._lock:
+            self.table = PK.create()
+            pager = self._pager
+            pager.reset()
+            for lp in range(PK.num_logical_pages):
+                lo, hi = lp * ps, min((lp + 1) * ps, n)
+                if lo >= n or not wide.used[lo:hi].any():
+                    continue
+                page = wide_zeros(ps)
+                for f in SlotTable._fields:
+                    page[f][: hi - lo] = getattr(wide, f)[lo:hi]
+                pp = pager.acquire_frame(lp)
+                if pp is not None:
+                    self.table = PK.write_page(self.table, lp, pp, SlotTable(**page))
+                    pager.page_map[lp] = pp
+                else:
+                    pager.host_tier[lp] = page

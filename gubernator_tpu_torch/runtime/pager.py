@@ -1,0 +1,211 @@
+"""Host-side page-residency manager for the paged slot table.
+
+The port of `gubernator_tpu/runtime/pager.py` for one device. The device
+half of paging is `ops/paged.py` (the page map and positional page
+moves); this module owns the HOST half: which logical page sits in which
+physical frame (a numpy mirror of the device map), the free-frame list,
+per-page touch recency, and the host-DRAM cold tier (demoted pages as
+wide numpy row blocks). The engine calls `ensure_resident` before each
+wave's decide, so a wave never runs against a demoted page.
+
+Locking: the Pager has no lock of its own. Every method that changes
+state is called with the owning engine's table lock held (the serving
+pump, snapshot and restore all take it).
+
+Order matters and follows the JAX package exactly, so pager state can be
+compared with it: `acquire_frame` pops the END of `free`, victims are the
+least recently touched resident page (lowest tick, ties to the lowest
+logical page), and every bind, unbind and write updates the device map
+(through the page op) and the host mirror together.
+
+A demote copies the page to the host (`extract_page`, then a blocking
+device-to-host copy on PyTorch's current stream, which orders it after
+every decide launched before it) and then unbinds the frame. Only
+demand demotes exist here: the JAX engine's background demoter is gated
+by the table census, which is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Set, Tuple
+
+import numpy as np
+
+from gubernator_tpu_torch.ops.layout import SLOT_DTYPES, SlotTable
+
+
+def wide_zeros(n: int) -> Dict[str, np.ndarray]:
+    """One n-row block of empty wide (SlotTable-shaped) host rows."""
+    return {f: np.zeros(n, dtype=SLOT_DTYPES[f]) for f in SlotTable._fields}
+
+
+class PageBudgetError(RuntimeError):
+    """One wave touches more distinct pages than there are physical
+    frames: the resident-page budget cannot hold a single wave's working
+    set. Raised loudly: silently dropping lanes would serve wrong
+    decisions."""
+
+
+class Pager:
+    """Tracks residency for a PagedKernels-backed table.
+
+    State (all guarded by the engine's table lock):
+      page_map:  host mirror of the device map (lp -> pp, -1 demoted)
+      free:      physical frames not bound to any logical page
+      touch:     per-logical-page monotonic touch tick (LRU victims)
+      host_tier: lp -> {field: np.ndarray(page_slots,)} wide rows
+    """
+
+    def __init__(self, kernels):
+        self.PK = kernels
+        self.page_map = np.full(kernels.num_logical_pages, -1, dtype=np.int32)
+        self.free: List[int] = list(range(kernels.num_phys_pages))
+        self.touch = np.zeros(kernels.num_logical_pages, dtype=np.int64)
+        self._tick = 0
+        self.host_tier: Dict[int, Dict[str, np.ndarray]] = {}
+        self.demotes = 0
+        self.promotes = 0
+        self.binds = 0
+
+    # ---- residency queries -------------------------------------------------
+
+    def resident_count(self) -> int:
+        return self.PK.num_phys_pages - len(self.free)
+
+    def host_count(self) -> int:
+        return len(self.host_tier)
+
+    def host_bytes(self) -> int:
+        return sum(
+            sum(a.nbytes for a in rows.values()) for rows in self.host_tier.values()
+        )
+
+    def touched_pages(self, groups, active=None) -> np.ndarray:
+        """Distinct logical pages hit by a host batch's group column."""
+        g = np.asarray(groups)
+        if active is not None:
+            g = g[np.asarray(active)]
+        if g.size == 0:
+            return g.astype(np.int64)
+        return np.unique(g.astype(np.int64) // self.PK.groups_per_page)
+
+    def phys_groups(self, groups: np.ndarray) -> np.ndarray:
+        """Host-side logical -> physical group translation; groups on
+        non-resident pages map to -1."""
+        g = np.asarray(groups, dtype=np.int64)
+        gpp = self.PK.groups_per_page
+        pp = self.page_map[g // gpp].astype(np.int64)
+        return np.where(pp >= 0, pp * gpp + g % gpp, np.int64(-1))
+
+    def host_live_keys(self) -> Set[Tuple[int, int]]:
+        """(key_hi, key_lo) of every used slot in the host tier: key
+        pruning keeps the strings of demoted keys (they are still live;
+        a promote brings them back verbatim)."""
+        out: Set[Tuple[int, int]] = set()
+        for rows in self.host_tier.values():
+            used = rows["used"]
+            out.update(zip(rows["key_hi"][used].tolist(), rows["key_lo"][used].tolist()))
+        return out
+
+    def host_tier_copy(self) -> Dict[int, Dict[str, np.ndarray]]:
+        """Shallow copy for readers outside the lock. Stored row blocks
+        are never changed in place (demote replaces the dict entry)."""
+        return dict(self.host_tier)
+
+    # ---- residency transitions (engine lock held) --------------------------
+
+    def ensure_resident(self, table, pages):
+        """Promote every page in `pages` (logical page indices), demoting
+        LRU victims if no frame is free. Returns the table."""
+        pages = [int(p) for p in np.atleast_1d(pages)]
+        self._tick += 1
+        for lp in pages:
+            self.touch[lp] = self._tick
+        protect = set(pages)
+        for lp in pages:
+            if self.page_map[lp] < 0:
+                table = self._promote_one(table, lp, protect)
+        return table
+
+    def acquire_frame(self, lp: int) -> Optional[int]:
+        """Pop a free frame for logical page `lp`; None when none is
+        free. Every bind site (promote and the engine's paged restore)
+        goes through here."""
+        return self.free.pop() if self.free else None
+
+    def _promote_one(self, table, lp: int, protect: Set[int]):
+        pp = self.acquire_frame(lp)
+        if pp is None:
+            victim = self._coldest_resident(protect)
+            if victim is None:
+                raise PageBudgetError(
+                    f"page budget {self.PK.num_phys_pages} cannot hold "
+                    f"{len(protect)} distinct pages touched by one wave; "
+                    "raise GUBER_TABLE_PAGE_BUDGET"
+                )
+            table = self.demote(table, victim)
+            pp = self.acquire_frame(lp)
+        rows = self.host_tier.pop(lp, None)
+        if rows is None:
+            table = self.PK.bind_page(table, lp, pp)
+            self.binds += 1
+        else:
+            table = self.PK.write_page(table, lp, pp, SlotTable(**rows))
+            self.promotes += 1
+        self.page_map[lp] = pp
+        return table
+
+    def demote(self, table, lp: int):
+        """Evacuate one resident page to the host tier (positional wide
+        rows) and unbind its frame. All-empty pages are dropped, not
+        stored: a later touch binds a zeroed frame."""
+        pp = int(self.page_map[lp])
+        if pp < 0:
+            return table
+        rows = self.PK.extract_page(table, pp)
+        host = {f: getattr(rows, f).cpu().numpy() for f in SlotTable._fields}
+        if host["used"].any():
+            self.host_tier[lp] = host
+        table = self.PK.unbind_page(table, lp, pp)
+        self.page_map[lp] = -1
+        self.free.append(pp)
+        self.demotes += 1
+        return table
+
+    def _coldest_resident(self, protect: Set[int]) -> Optional[int]:
+        resident = np.nonzero(self.page_map >= 0)[0]
+        candidates = [lp for lp in resident.tolist() if lp not in protect]
+        if not candidates:
+            return None
+        return min(candidates, key=lambda lp: int(self.touch[lp]))
+
+    def reset(self) -> None:
+        """The engine rebuilt an empty paged table: every mirror entry,
+        frame and host page is gone."""
+        self.page_map.fill(-1)
+        self.free = list(range(self.PK.num_phys_pages))
+        self.touch.fill(0)
+        self.host_tier.clear()
+
+    # ---- observability -----------------------------------------------------
+
+    def pages_snapshot(self) -> dict:
+        """Residency summary, the JAX pager's single-device form."""
+        nlp = self.PK.num_logical_pages
+        snap = {
+            "enabled": True,
+            "groups_per_page": self.PK.groups_per_page,
+            "page_slots": self.PK.page_slots,
+            "logical_pages": nlp,
+            "budget": self.PK.num_phys_pages,
+            "resident": self.resident_count(),
+            "free": len(self.free),
+            "host": len(self.host_tier),
+            "host_bytes": self.host_bytes(),
+            "demotes": self.demotes,
+            "promotes": self.promotes,
+            "binds": self.binds,
+        }
+        if nlp <= 4096:  # bounded debug payload
+            snap["page_map"] = self.page_map.tolist()
+        return snap

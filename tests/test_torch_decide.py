@@ -347,9 +347,9 @@ def test_single_requests_match_oracle(seed, path):
 
 def test_registry_dispatches_by_device():
     """get_kernels("fused").decide on a CPU table is the plain version
-    and launches nothing; an unknown layout is refused."""
+    and launches nothing; a layout the port does not serve is refused."""
     K = get_kernels("fused")
-    before = cuda_decide.LAUNCHES
+    before = sum(cuda_decide.CONFIG_LAUNCHES.values())
     wave, now = _waves(13, 1)[0]
     t1 = K.create(NUM_GROUPS, WAYS, "cpu")
     t2 = fused.FusedTable.create(NUM_GROUPS, WAYS, device="cpu")
@@ -357,9 +357,9 @@ def test_registry_dispatches_by_device():
     t2, o2, _ = fused.decide_fused_plain(t2, to_torch(wave), now, ways=WAYS)
     assert torch.equal(t1.data, t2.data)
     assert torch.equal(o1.remaining, o2.remaining)
-    assert cuda_decide.LAUNCHES == before
+    assert sum(cuda_decide.CONFIG_LAUNCHES.values()) == before
     with pytest.raises(ValueError):
-        get_kernels("narrow")
+        get_kernels("wide")
 
 
 def test_wrapper_refuses_bad_operands():

@@ -65,3 +65,14 @@ def test_source_imports_no_jax_or_reference_package(path):
             assert top not in ("jax", "jaxlib", "gubernator_tpu"), (
                 f"{path}:{node.lineno} imports {n}"
             )
+
+
+@pytest.mark.parametrize("module", [
+    "gubernator_tpu_torch.ops.narrow",
+    "gubernator_tpu_torch.ops.paged",
+    "gubernator_tpu_torch.runtime.pager",
+])
+def test_slice_modules_are_checked(module):
+    """The narrow layout, the paged table and the pager are among the
+    modules imported above with jax and gubernator_tpu blocked."""
+    assert module in _port_modules()
