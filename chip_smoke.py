@@ -3,9 +3,10 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the port's native code from the checkout (the CUDA decide-wave
-kernel, one nvcc source holding its four configurations, for sm_90a,
-and the key hasher with g++, both compilers started at once), then
-drives it at two sizes and prints one JSON line per phase:
+kernel and the CUDA decide-scan kernel, one nvcc source each holding
+four configurations, built for sm_90a into one library, and the key
+hasher with g++, both compilers started at once), then drives it at two
+sizes and prints one JSON line per phase:
 
 - 1M (BASELINE.json config 3, "1M-key Zipfian"): a flat table of 2^18
   groups x 8 ways holding 1,000,000 live keys; kernel configurations
@@ -34,13 +35,42 @@ Phases, for each size:
    median of 5 runs of 200 back-to-back launches, the kernel's device
    time from torch.profiler, the plain version's median and the byte
    bound, which counts the live matches each timed launch found.
-3. main_path: `V1Service.get_rate_limits` over a CUDA `DeviceEngine` in
+3. scan_kernel: the scan kernel (`decide_scan.cu`, T = 32 waves in one
+   cooperative launch) of each configuration of the size against its
+   plain version (`scan_plain`) and against 32 successive launches of
+   the wave kernel, each on its own copy of the table: 32 steps of 4,096
+   lanes drawn as the bench draws them (the Zipf head's groups recur in
+   consecutive steps), bit-exact on every (T, B) field, the (T,) sums,
+   the whole physical table and the page map; exactly one launch per
+   scan. The steps carry the bench's `kernel10m` (BASELINE config 5)
+   behavior mix, RESET_REMAINING and DRAIN_OVER_LIMIT beside plain
+   lanes, so every behavior the bench runs is held against the plain
+   version on the card. Flat on the 1M image; paged on the 10M frames
+   with the scrambled map, so sentinel lanes occur.
+4. scan_times: the scan's device ms per scan and per step (CUDA events,
+   L2 flushed, device held busy while the host enqueues; and
+   torch.profiler's kernel time), the same 32 waves as 32 wave-kernel
+   launches (events, and the profiler's summed kernel time), the plain
+   version's ms and the byte bound summed over the steps. Paged scans
+   are timed on groups of resident pages, as the bench runs them.
+5. main_path: `V1Service.get_rate_limits` over a CUDA `DeviceEngine` in
    each configuration, 8 calls of 1,000 Zipf(1.1) items, against one CPU
    engine (flat, fused: the plain version) on the same calls and frozen
    clock: every response and the final snapshot equal, kernel launches
    of that configuration equal to waves and > 0, and (paged) pages
    promoted and demoted, with host-clock spans of the pager's
    ensure_resident, demote and promote.
+
+Then the bench (`gubernator_tpu_torch/bench.py`, the port of the repo's
+`bench.py` device modes), each run with the launch counts set to 0 just
+before it and read just after: `kernel` (1M keys) and `kernel10m` (10M
+keys) for both layouts on flat tables, and `latency` (fused). Each flat
+run is replayed on a CPU table through the plain version and must leave
+the same table and eviction count. Then a drive of the paged scan
+kernels (no deployment runs it): the `kernel10m` traffic on a paged
+table of 512 pages of 4,096 groups, every page resident, for both
+layouts, which must leave exactly the flat run's table. Each line is
+printed as a phase line with the scan launches it made.
 
 Then a summary line with the wall time, the card's name and power limit
 as nvidia-smi prints them, the kernel table line, and the last line
@@ -70,6 +100,7 @@ if not torch.cuda.is_available():
           file=sys.stderr)
     sys.exit(2)
 
+from gubernator_tpu_torch import bench  # noqa: E402
 from gubernator_tpu_torch.api.keys import key_hash128_batch  # noqa: E402
 from gubernator_tpu_torch.api.types import RateLimitReq  # noqa: E402
 from gubernator_tpu_torch.ops import _build, cuda_decide, fused, narrow  # noqa: E402
@@ -79,6 +110,7 @@ from gubernator_tpu_torch.ops.layout import (  # noqa: E402
     RequestBatch,
     SlotTable,
     batch_to_device,
+    stack_batches,
 )
 from gubernator_tpu_torch.ops.paged import PagedTable  # noqa: E402
 from gubernator_tpu_torch.runtime.engine import DeviceEngine, EngineConfig  # noqa: E402
@@ -104,6 +136,9 @@ B = 1024
 WAVES = 16
 CALLS = 8
 ITEMS = 1000
+SCAN_T = 32  # steps per scan, as the bench's chunk
+SCAN_B = 4096  # lanes per step, as the bench's batch
+SCAN_REPS = 20
 NOW = 1_753_700_000_000
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the
 # non-tensor float32 rate, taken as the scalar-ALU ceiling for the
@@ -290,7 +325,7 @@ def run_plain(table, db, now: int, layout: str, gpp: int):
 
 def resident_lanes(hb: RequestBatch, size: Size, page_map) -> np.ndarray:
     if page_map is None:
-        return np.ones(B, bool)
+        return np.ones(len(hb.active), bool)
     return page_map[hb.group.astype(np.int64) // size.page_groups] >= 0
 
 
@@ -325,20 +360,23 @@ def bound_ms(hb, layout, resident, paged, hits):
 # phases
 
 
+LIBS = ["decide_cuda", "guberhash"]
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
-    _build.build(["decide_wave", "guberhash"], force=True)
+    _build.build(LIBS, force=True)
     ptxas = [
-        ln.strip() for ln in _build.log_path("decide_wave").read_text().splitlines()
+        ln.strip() for ln in _build.log_path("decide_cuda").read_text().splitlines()
         if "entry function" in ln or "registers" in ln or "spill" in ln
     ]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libs": ["decide_wave", "guberhash"], "ptxas": ptxas})
+          "libs": LIBS, "ptxas": ptxas})
 
 
-def _max_abs_err(ko, po, ks, ps) -> float:
-    """Largest |kernel - plain| over every output field and scalar;
-    raises unless they are bit-equal."""
+def _out_err(ko, po, what="the plain version") -> float:
+    """Largest |kernel - reference| over every DecideOutput field (lanes
+    and sums, (B,) or stacked (T, B)); raises unless they are bit-equal."""
     err = 0.0
     for f in ko._fields:
         a, r = getattr(ko, f), getattr(po, f)
@@ -346,8 +384,14 @@ def _max_abs_err(ko, po, ks, ps) -> float:
             raise AssertionError(f"output {f}: {a.dtype}{tuple(a.shape)} vs {r.dtype}{tuple(r.shape)}")
         d = float((a.double() - r.double()).abs().max()) if a.numel() else 0.0
         if not torch.equal(a, r):
-            raise AssertionError(f"output {f} differs from the plain version (max abs {d})")
+            raise AssertionError(f"output {f} differs from {what} (max abs {d})")
         err = max(err, d)
+    return err
+
+
+def _max_abs_err(ko, po, ks, ps) -> float:
+    """`_out_err` plus the WaveScan sums, which must be equal too."""
+    err = _out_err(ko, po)
     for f in ks._fields:
         if not torch.equal(getattr(ks, f), getattr(ps, f)):
             raise AssertionError(f"WaveScan.{f}: kernel {int(getattr(ks, f))} plain {int(getattr(ps, f))}")
@@ -412,9 +456,9 @@ def _median_ms(fn, reps, flush, hold_cycles=0):
     return statistics.median(times)
 
 
-def _profiled_device_ms(fn, reps):
-    """Device time per launch of the decide kernel from torch.profiler
-    (CUPTI), or None when the trace holds no device time for it."""
+def _profiled_device_ms(fn, reps, kernel="decide_wave_kernel"):
+    """Device time per launch of `kernel` from torch.profiler (CUPTI),
+    or None when the trace holds no device time for it."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -423,7 +467,7 @@ def _profiled_device_ms(fn, reps):
         sync()
     total_us, count = 0.0, 0
     for e in prof.key_averages():
-        if "decide_wave_kernel" in e.key:
+        if kernel in e.key:
             t = getattr(e, "device_time_total", None)
             total_us += t if t is not None else getattr(e, "cuda_time_total", 0.0)
             count += e.count
@@ -511,6 +555,255 @@ def phase_times(rng, image, size, layout, page_map, kt, pt, card):
     emit(res)
     del flush
     return res
+
+
+# ---------------------------------------------------------------------------
+# the scan kernel (T waves in one launch)
+
+
+def scan_steps(rng, size: Size, now: int, page_map=None):
+    """SCAN_T host batches of SCAN_B lanes drawn as the bench draws them
+    (`bench._make_zipf_batch`: Zipf(1.1) over the size's live-key count,
+    deduplicated per step, so the head's groups recur in consecutive
+    steps; the `kernel10m` behavior mix, a superset of `kernel`'s plain
+    lanes), and their `nows`. With `page_map` the groups are drawn over
+    the resident pages only (a bijection onto them), as the paged drive
+    holds every page resident."""
+    gpp = size.page_groups
+    groups = size.num_groups
+    if page_map is not None:
+        mapped = np.nonzero(page_map >= 0)[0]
+        groups = mapped.size * gpp
+    hosts = []
+    for _ in range(SCAN_T):
+        hb = bench._make_zipf_batch(rng, SCAN_B, size.live_keys, groups, now, "kernel10m")
+        if page_map is not None:
+            g = hb.group.astype(np.int64)
+            hb.group[:] = (mapped[g // gpp] * gpp + g % gpp).astype(np.int32)
+        hosts.append(hb)
+    nows = now + np.cumsum(rng.choice([0, 1, 250, 2000], SCAN_T)).astype(np.int64)
+    return hosts, nows
+
+
+def run_scan(table, db, nows, layout: str, gpp: int):
+    if isinstance(table, PagedTable):
+        _, out = cuda_decide.decide_scan_paged(table, db, nows, layout=layout, ways=WAYS, gpp=gpp)
+    else:
+        _, out = cuda_decide.decide_scan_flat(table, db, nows, layout=layout, ways=WAYS)
+    return out
+
+
+def run_scan_plain(table, db, nows, layout: str, gpp: int):
+    pm = table.page_map if isinstance(table, PagedTable) else None
+    return fused.scan_plain(CODEC[layout], _rows(table), pm, db, nows, ways=WAYS, gpp=gpp)
+
+
+def run_waves(table, db, nows: np.ndarray, layout: str, gpp: int):
+    """The scan's steps as successive launches of the wave kernel; the
+    outputs stacked as the scan stacks them."""
+    outs = [run_kernel(table, RequestBatch(*(c[t] for c in db)), int(nows[t]), layout, gpp)[0]
+            for t in range(len(nows))]
+    return type(outs[0])(*(torch.stack(f) for f in zip(*outs)))
+
+
+def _recurring_groups(hosts) -> int:
+    """Active groups a step shares with the step before it."""
+    n = 0
+    for a, b in zip(hosts, hosts[1:]):
+        n += np.intersect1d(a.group[a.active], b.group[b.active]).size
+    return n
+
+
+def phase_scan_kernel(rng, image, size, layout, page_map):
+    """The scan kernel against its plain version and against SCAN_T wave
+    launches, each on its own copy of the table. Returns the three
+    tables (reused for the times) and the largest difference (0)."""
+    paged = page_map is not None
+    name = cuda_decide.config_name(layout, paged, scan=True)
+    wave_name = cuda_decide.config_name(layout, paged)
+    gpp = size.page_groups
+    kt, pt = kernel_tables(image, size, layout, page_map)
+    wt = PagedTable(type(kt.data)(kt.data.data.clone()), kt.page_map.clone()) if paged \
+        else type(kt)(kt.data.clone())
+    pm0 = kt.page_map.clone() if paged else None
+    n = _rows(kt).shape[0]
+    hosts, nows = scan_steps(rng, size, NOW + 1000)
+    db = batch_to_device(stack_batches(hosts), DEVICE)
+    nows_d = torch.from_numpy(nows).to(DEVICE)
+    sync()
+    s0, w0 = cuda_decide.CONFIG_LAUNCHES[name], cuda_decide.CONFIG_LAUNCHES[wave_name]
+    ko = run_scan(kt, db, nows_d, layout, gpp)
+    sync()
+    scan_launches = cuda_decide.CONFIG_LAUNCHES[name] - s0
+    po = run_scan_plain(pt, db, nows_d, layout, gpp)
+    wo = run_waves(wt, db, nows, layout, gpp)
+    sync()
+    wave_launches = cuda_decide.CONFIG_LAUNCHES[wave_name] - w0
+    err = max(_out_err(ko, po), _out_err(ko, wo, f"{SCAN_T} {wave_name} launches"))
+    for ref, what in ((pt, "the plain version"), (wt, f"{SCAN_T} wave launches")):
+        if not torch.equal(_rows(kt), _rows(ref)):
+            rows = int((_rows(kt) != _rows(ref)).any(dim=1).sum())
+            raise AssertionError(f"{name}: table differs from {what} in {rows} rows")
+        if paged and not torch.equal(ref.page_map, pm0):
+            raise AssertionError(f"{name}: the page map changed ({what})")
+    if paged and not torch.equal(kt.page_map, pm0):
+        raise AssertionError(f"{name}: the page map changed")
+    if scan_launches != 1 or wave_launches != SCAN_T:
+        raise AssertionError(f"{name}: {scan_launches} scan launches, {wave_launches} wave launches")
+    emit({"phase": "scan_kernel", "size": size.name, "kernel": name, "ok": True,
+          "steps": SCAN_T, "batch": SCAN_B, "table_rows": n,
+          "active_lanes": int(db.active.sum()),
+          "recurring_groups": _recurring_groups(hosts),
+          "sentinel_lanes": int((db.active & (ko.slot == n)).sum()),
+          "live_matches": int(ko.hits.sum()),
+          "launches": scan_launches, "wave_launches_compared": wave_launches,
+          "max_abs_err": err, "tolerance": "bit-exact (int64)"})
+    return (kt, pt, wt), err
+
+
+def scan_bound_ms(hosts, layout, residents, paged, hits):
+    """Least time of one scan: the larger of its bytes (every step's, as
+    `wave_bytes` counts a wave, plus the T `nows`) over HBM bandwidth and
+    its integer operations over the scalar rate."""
+    nbytes = 8 * len(hosts) + sum(wave_bytes(hb, layout, r, paged, h)
+                                  for hb, r, h in zip(hosts, residents, hits))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(int(np.count_nonzero(hb.active)) for hb in hosts) * OPS_PER_LANE / SCALAR_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_scan_times(rng, size, layout, page_map, tables, card):
+    """Times of one scan of SCAN_T x SCAN_B at the bench's shape, over
+    the tables of the scan_kernel phase; paged: groups on resident pages
+    only. The bound of each timed scan counts the live matches its steps
+    found."""
+    paged = page_map is not None
+    name = cuda_decide.config_name(layout, paged, scan=True)
+    gpp = size.page_groups
+    kt, pt, wt = tables
+    hosts, nows = scan_steps(rng, size, NOW + 60_000, page_map)
+    residents = [resident_lanes(hb, size, page_map) for hb in hosts]
+    if not all(r.all() for r in residents):
+        raise AssertionError(f"{name}: a timed step holds a sentinel lane")
+    db = batch_to_device(stack_batches(hosts), DEVICE)
+    nows_d = torch.from_numpy(nows).to(DEVICE)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)  # > the H100's 50 MB L2
+    hits = []
+
+    def scan():
+        hits.append(run_scan(kt, db, nows_d, layout, gpp).hits)
+
+    def waves():
+        run_waves(wt, db, nows, layout, gpp)
+
+    for _ in range(3):
+        run_scan(kt, db, nows_d, layout, gpp)
+    waves()
+    sync()
+    # the scan on the card: events around one launch, L2 flushed, the
+    # device held busy (2M cycles, ~1 ms at the H100's 1.98 GHz) while
+    # the host enqueues: memset + kernel
+    s_ms = _median_ms(scan, SCAN_REPS, flush, hold_cycles=2_000_000)
+    s_dev = _profiled_device_ms(lambda: run_scan(kt, db, nows_d, layout, gpp), SCAN_REPS,
+                                "decide_scan_kernel")
+    # the yardstick: the same steps as SCAN_T wave launches, events
+    # around all of them (host-paced), and the kernels' device time
+    w_ms = _median_ms(waves, 5, flush)
+    w_dev = _profiled_device_ms(waves, 5)
+    run_scan_plain(pt, db, nows_d, layout, gpp)
+    sync()
+    p_ms = _median_ms(lambda: run_scan_plain(pt, db, nows_d, layout, gpp), 3, flush)
+    hits = torch.stack(hits).tolist()
+    bounds = [scan_bound_ms(hosts, layout, residents, paged, h) for h in hits]
+    b_ms = statistics.median(b for b, _ in bounds)
+    res = {"phase": "scan_times", "size": size.name, "kernel": name,
+           "steps": SCAN_T, "batch": SCAN_B,
+           "scan_ms_median": s_ms, "step_ms_median": s_ms / SCAN_T,
+           "scan_device_ms_profiler": s_dev,
+           "step_device_ms_profiler": s_dev / SCAN_T if s_dev else None,
+           "waves_ms_median": w_ms,
+           "waves_device_ms_profiler": w_dev * SCAN_T if w_dev else None,
+           "wave_device_ms_profiler": w_dev,
+           "plain_ms_median": p_ms, "bound_ms": b_ms, "bound_by": bounds[0][1],
+           "active_lanes_per_scan": sum(int(np.count_nonzero(hb.active)) for hb in hosts),
+           "recurring_groups": _recurring_groups(hosts),
+           "live_matches_per_scan_median": statistics.median(sum(h) for h in hits),
+           "reps_scan": SCAN_REPS, "reps_waves": 5, "reps_plain": 3, "card": card}
+    emit(res)
+    del flush
+    return res
+
+
+# (mode, layout, page_groups) of each bench run; the paged kernel10m
+# runs, a drive of the paged scan kernels, hold all 512 logical pages
+# (2^21 groups / 4,096) resident
+BENCH_RUNS = (
+    ("kernel", "fused", 0), ("kernel", "narrow", 0),
+    ("kernel10m", "fused", 0), ("kernel10m", "narrow", 0),
+    ("kernel10m", "fused", 4096), ("kernel10m", "narrow", 4096),
+)
+
+
+def _quiet(*_a, **_k) -> None:
+    pass
+
+
+def phase_bench(card):
+    """The port's bench, each run with the launch counts set to 0 just
+    before it and read just after. Returns {scan config: launches} of
+    the first run that drove each configuration."""
+    scan_launches = {}
+    flat10m = {}
+    for mode, layout, pg in BENCH_RUNS:
+        paged = bool(pg)
+        name = cuda_decide.config_name(layout, paged, scan=True)
+        sync()
+        cuda_decide.reset_launches()
+        run = bench.run_kernel_bench(mode, layout, device=DEVICE, page_groups=pg, log=_quiet)
+        sync()
+        launches = dict(cuda_decide.CONFIG_LAUNCHES)
+        res = {"phase": "bench", "mode": mode, "layout": layout, "paged": paged,
+               "line": run.result, "scan_launches": launches[name],
+               "wave_launches": launches[cuda_decide.config_name(layout, paged)],
+               "other_launches": sum(launches.values()) - launches[name]
+               - launches[cuda_decide.config_name(layout, paged)],
+               "decisions": run.decisions, "seconds": run.seconds,
+               "evictions": run.evictions, "card": card}
+        if not paged:
+            # the same run through the plain version on a CPU table
+            ref = bench.run_kernel_bench(mode, layout, device="cpu", log=_quiet)
+            res["cpu_replay_equal"] = bool(torch.equal(_rows(run.table).cpu(), _rows(ref.table))
+                                           and run.evictions == ref.evictions)
+            del ref
+            if mode == "kernel10m":
+                flat10m[layout] = run
+        else:
+            flat = flat10m.pop(layout)
+            res["equals_flat_run"] = bool(torch.equal(_rows(run.table), _rows(flat.table))
+                                          and run.evictions == flat.evictions)
+            del flat
+        emit(res)
+        v = run.result["value"]
+        if not (np.isfinite(v) and v > 0):
+            raise AssertionError(f"bench {mode} {layout}: value {v}")
+        if launches[name] != run.scans or res["other_launches"]:
+            raise AssertionError(f"bench {mode} {layout}: launches {launches}")
+        if res.get("cpu_replay_equal") is False or res.get("equals_flat_run") is False:
+            raise AssertionError(f"bench {mode} {layout} paged={paged}: table differs from its reference")
+        scan_launches.setdefault(name, launches[name])
+        del run
+        free_device()
+    sync()
+    cuda_decide.reset_launches()
+    line = bench.bench_latency("fused", device=DEVICE, log=_quiet)
+    sync()
+    n = cuda_decide.CONFIG_LAUNCHES["decide_scan"]
+    emit({"phase": "bench", "mode": "latency", "layout": "fused", "line": line,
+          "scan_launches": n, "card": card})
+    if not (n > 0 and np.isfinite(line["value"])):
+        raise AssertionError(f"bench latency: {n} scan launches, value {line['value']}")
+    free_device()
+    return scan_launches
 
 
 class _Zipf:
@@ -684,19 +977,26 @@ def phase_main_path(rng, image: SlotTable, size: Size):
 
 
 def run_size(rng, size: Size, card: str):
-    """Kernel checks and times for each configuration of the size, then
-    its main path. Returns {kernel name: (kernel, times, main) lines}."""
+    """Kernel checks and times for each wave and scan configuration of
+    the size, then its main path. Returns ({wave kernel name: (kernel,
+    times, main) lines}, {scan kernel name: (max err, times line)})."""
     image = live_image(rng, size)
     pm = scrambled_page_map(rng, size) if size.page_groups else None
-    checked = {}
+    checked, scans = {}, {}
     for layout, paged in size.configs:
-        kt, pt, err = phase_kernel(rng, image, size, layout, pm if paged else None)
-        times = phase_times(rng, image, size, layout, pm if paged else None, kt, pt, card)
+        pmap = pm if paged else None
+        kt, pt, err = phase_kernel(rng, image, size, layout, pmap)
+        times = phase_times(rng, image, size, layout, pmap, kt, pt, card)
         checked[cuda_decide.config_name(layout, paged)] = (err, times)
         del kt, pt
         free_device()
+        tables, serr = phase_scan_kernel(rng, image, size, layout, pmap)
+        stimes = phase_scan_times(rng, size, layout, pmap, tables, card)
+        scans[cuda_decide.config_name(layout, paged, scan=True)] = (serr, stimes)
+        del tables
+        free_device()
     main = phase_main_path(rng, image, size)
-    return {k: (err, times, main[k]) for k, (err, times) in checked.items()}
+    return {k: (err, times, main[k]) for k, (err, times) in checked.items()}, scans
 
 
 def kernel_entry(name, layout, paged, err, times, main):
@@ -709,6 +1009,23 @@ def kernel_entry(name, layout, paged, err, times, main):
         "launches": main["launches"],
         "max_abs_err": err,
         "ms": times["kernel_ms_median"],
+        "plain_ms": times["plain_ms_median"],
+        "bound_ms": times["bound_ms"],
+        "bound_by": times["bound_by"],
+        "library_ms": None,
+    }
+
+
+def scan_entry(name, layout, paged, err, times, launches):
+    where = "915 (decide_scan_paged" if paged else "878 (decide_scan_flat"
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "gubernator_tpu_torch/csrc/decide_scan.cu",
+        "replaces": f"gubernator_tpu/ops/pallas_decide.py:{where}, layout={layout})",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": times["scan_ms_median"],
         "plain_ms": times["plain_ms_median"],
         "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"],
@@ -732,12 +1049,19 @@ def main() -> int:
           "count": torch.cuda.device_count()})
 
     phase_build()
-    entries = []
+    entries, scans = [], []
     for size in SIZES:
-        done = run_size(rng, size, smi)
+        done, scanned = run_size(rng, size, smi)
         for layout, paged in size.configs:
             k = cuda_decide.config_name(layout, paged)
             entries.append(kernel_entry(k, layout, paged, *done[k]))
+            k = cuda_decide.config_name(layout, paged, scan=True)
+            scans.append(scan_entry(k, layout, paged, *scanned[k], None))
+    # the bench is the scans' main path: their launches are its counts
+    launches = phase_bench(smi)
+    for e in scans:
+        e["launches"] = launches[e["name"]]
+    entries += scans
     emit({"phase": "summary", "wall_s": time.perf_counter() - t0,
           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
           "nvidia_smi": smi})

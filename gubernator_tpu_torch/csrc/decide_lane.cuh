@@ -1,10 +1,13 @@
 // One lane of the decide wave: probe the lane's W-way group, pick the
 // way, run the token- or leaky-bucket branch, store the new row.
 //
-// This is the per-lane body of the Hopper kernel in decide_wave.cu (the
-// port of gubernator_tpu/ops/pallas_decide.py::_make_kernel), in four
+// This is the per-lane body of the Hopper kernels in decide_wave.cu and
+// decide_scan.cu (the port of gubernator_tpu/ops/pallas_decide.py::
+// _make_kernel, one wave or a scan of waves), in four
 // static configurations: layout fused or narrow, flat or paged table
-// (template parameters of decide_lane; no run-time branch on them). It
+// (template parameters of decide_lane; no run-time branch on them;
+// `dispatch` picks one). The kernels also share the block reduction of
+// the scalars (`block_add_scalars`). It
 // computes exactly what _wave_compute computes (pallas_decide.py:201-386)
 // for one lane, and what the plain PyTorch version
 // ops/fused.py::wave_plain computes; the three are bit-exact. The header
@@ -26,6 +29,8 @@
 #pragma once
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #if defined(__CUDACC__)
 #define GUBER_HD __host__ __device__ __forceinline__
@@ -67,6 +72,16 @@ struct GuberWaveArgs {
   int32_t batch;
   int32_t gpp;  // paged only: groups per page
   int32_t n_log_pages;  // paged only
+};
+
+// Arguments of a scan of `steps` waves over one table (decide_scan.cu):
+// step 0's wave, whose batch columns and outputs are (steps, batch)
+// row-major and whose `scalars` is (steps, 9); `now` is unused, each
+// step reads its own from `nows`. Mirrored in ops/cuda_decide.py.
+struct GuberScanArgs {
+  GuberWaveArgs wave;
+  const int64_t* nows;  // (steps,)
+  int32_t steps;
 };
 
 namespace guber {
@@ -526,5 +541,95 @@ GUBER_HD void decide_lane(const GuberWaveArgs& a, int j,
   scal[S_CENSUS_LIVE] += freed ? 0 : 1;
   scal[S_CENSUS_WASTE] += (!freed && o.expire_at <= now) ? 1 : 0;
 }
+
+// The wave of step t of a scan: every batch and output pointer moved to
+// row t (offset t * batch), now = nows[t], scalars at row t. The table
+// and the page map are the same for every step.
+GUBER_HD GuberWaveArgs step_args(const GuberScanArgs& a, int t) {
+  GuberWaveArgs w = a.wave;
+  const int64_t off = (int64_t)t * a.wave.batch;
+  w.key_hi += off;
+  w.key_lo += off;
+  w.group += off;
+  w.algo += off;
+  w.behavior += off;
+  w.hits += off;
+  w.limit += off;
+  w.duration += off;
+  w.rate_num += off;
+  w.eff_duration += off;
+  w.greg_expire += off;
+  w.burst += off;
+  w.created_at += off;
+  w.active += off;
+  w.out_status += off;
+  w.out_limit += off;
+  w.out_remaining += off;
+  w.out_reset_time += off;
+  w.out_slot += off;
+  w.out_evicted_hi += off;
+  w.out_evicted_lo += off;
+  w.out_freed += off;
+  w.scalars += (int64_t)t * N_SCAL;
+  w.now = a.nows[t];
+  return w;
+}
+
+// Calls f(L, P) with L = std::integral_constant<int, layout> and P =
+// std::bool_constant<paged> for one of the four static configurations,
+// so a caller instantiates its template with decltype(L)::value,
+// decltype(P)::value. Returns false (and calls nothing) for an unknown
+// one. The only place the configurations are enumerated.
+template <typename F>
+bool dispatch(int layout, int paged, F&& f) {
+  using Fused = std::integral_constant<int, LAYOUT_FUSED>;
+  using Narrow = std::integral_constant<int, LAYOUT_NARROW>;
+  if (layout == LAYOUT_FUSED && paged == 0)
+    f(Fused{}, std::false_type{});
+  else if (layout == LAYOUT_FUSED && paged == 1)
+    f(Fused{}, std::true_type{});
+  else if (layout == LAYOUT_NARROW && paged == 0)
+    f(Narrow{}, std::false_type{});
+  else if (layout == LAYOUT_NARROW && paged == 1)
+    f(Narrow{}, std::true_type{});
+  else
+    return false;
+  return true;
+}
+
+#if defined(__CUDACC__)
+// Adds the block's per-thread sums `s` into scalars[0..N_SCAL): warp
+// shuffles, then shared memory, then one 64-bit atomicAdd per nonzero
+// scalar per block. Integer sums do not depend on order, so the result
+// is bit-exact. Every thread of the block (THREADS of them) must call
+// it: it holds a __syncthreads(). A caller that calls it again must put
+// a barrier between the calls, since threads 0..N_SCAL-1 read the shared
+// partials after the __syncthreads().
+template <int THREADS>
+__device__ __forceinline__ void block_add_scalars(const int64_t s[N_SCAL],
+                                                  int64_t* scalars) {
+  constexpr int kWarps = THREADS / 32;
+  __shared__ unsigned long long part[kWarps][N_SCAL];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < N_SCAL; ++k) {
+    unsigned long long v = (unsigned long long)s[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) part[warp][k] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < N_SCAL) {
+    unsigned long long sum = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += part[w][threadIdx.x];
+    if (sum != 0)
+      atomicAdd(reinterpret_cast<unsigned long long*>(scalars) + threadIdx.x,
+                sum);
+  }
+}
+#endif  // __CUDACC__
 
 }  // namespace guber

@@ -2,8 +2,9 @@
 // by g++, one lane after another. Tests only: it lets the CPU test suite
 // hold the kernel's own C++ against the plain PyTorch version, since no
 // CUDA compiler or card is there. Lanes of a wave touch distinct groups,
-// so running them in sequence gives what the parallel kernel gives.
-// No serving path calls it.
+// so running them in sequence gives what the parallel kernel gives; the
+// scan runs its steps in order, as the grid barrier orders them in
+// decide_scan.cu. No serving path calls it.
 
 #include "decide_lane.cuh"
 
@@ -15,6 +16,17 @@ void run(const GuberWaveArgs* args, int64_t* s) {
     guber::decide_lane<LAYOUT, PAGED>(*args, j, s);
 }
 
+// One wave into its (9,) scalars; false for an unknown configuration.
+bool wave(const GuberWaveArgs* args, int layout, int paged) {
+  int64_t s[guber::N_SCAL] = {0};
+  const bool known = guber::dispatch(layout, paged, [&](auto L, auto P) {
+    run<decltype(L)::value, decltype(P)::value>(args, s);
+  });
+  if (!known) return false;
+  for (int k = 0; k < guber::N_SCAL; ++k) args->scalars[k] = s[k];
+  return true;
+}
+
 }  // namespace
 
 // One wave of configuration (layout, paged), as guber_decide_wave in
@@ -22,19 +34,17 @@ void run(const GuberWaveArgs* args, int64_t* s) {
 // configuration.
 extern "C" int guber_decide_wave_host(const GuberWaveArgs* args, int layout,
                                       int paged) {
-  using guber::LAYOUT_FUSED;
-  using guber::LAYOUT_NARROW;
-  int64_t s[guber::N_SCAL] = {0};
-  if (layout == LAYOUT_FUSED && paged == 0)
-    run<LAYOUT_FUSED, false>(args, s);
-  else if (layout == LAYOUT_FUSED && paged == 1)
-    run<LAYOUT_FUSED, true>(args, s);
-  else if (layout == LAYOUT_NARROW && paged == 0)
-    run<LAYOUT_NARROW, false>(args, s);
-  else if (layout == LAYOUT_NARROW && paged == 1)
-    run<LAYOUT_NARROW, true>(args, s);
-  else
-    return 1;
-  for (int k = 0; k < guber::N_SCAL; ++k) args->scalars[k] = s[k];
+  return wave(args, layout, paged) ? 0 : 1;
+}
+
+// A scan of args->steps waves, as guber_decide_scan in decide_scan.cu
+// takes them: step t is the wave step_args(t). Returns 0, or 1 for an
+// unknown configuration.
+extern "C" int guber_decide_scan_host(const GuberScanArgs* args, int layout,
+                                      int paged) {
+  for (int t = 0; t < args->steps; ++t) {
+    const GuberWaveArgs w = guber::step_args(*args, t);
+    if (!wave(&w, layout, paged)) return 1;
+  }
   return 0;
 }

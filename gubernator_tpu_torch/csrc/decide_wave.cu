@@ -21,15 +21,15 @@
 // read and write no row (slot == n). Distinct groups per wave, the
 // assembler's invariant, make the row stores race-free without atomics.
 // The 9 scalars (hits, misses, unexpired evictions, over-limit and the 5
-// WaveScan sums) are reduced per warp with shuffles and per block in
-// shared memory, then added with one 64-bit atomicAdd per scalar per
-// block; integer sums do not depend on order, so the result is
-// bit-exact.
+// WaveScan sums) are reduced per block and added with one 64-bit
+// atomicAdd per scalar per block (decide_lane.cuh block_add_scalars);
+// integer sums do not depend on order, so the result is bit-exact.
 //
 // Bound. At B = 1024 a wave moves about B x (W x 40 B of probe columns +
 // the rest of the row + the new row (80 B fused, 72 B narrow) + ~170 B
 // of batch columns and outputs, + 4 B of page map when paged) ~= 0.6 MB,
-// ~0.2 us at 3.35 TB/s: the kernel is bound by launch and memory latency
+// ~0.2 us at the H100 SXM's 3.35 TB/s (NVIDIA data sheet, not a
+// measurement): the kernel is bound by launch and memory latency
 // (a dependent page map -> probe -> row -> store chain per thread), not
 // by bytes. Hiding that (CUDA graphs over a flush's waves, persistent
 // blocks) is later work.
@@ -41,7 +41,6 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 
 template <int LAYOUT, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
@@ -51,28 +50,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int k = 0; k < guber::N_SCAL; ++k) s[k] = 0;
   if (j < a.batch) guber::decide_lane<LAYOUT, PAGED>(a, j, s);
-
-  // Block reduction of the scalars: warp shuffles, then shared memory.
-  __shared__ unsigned long long part[kWarps][guber::N_SCAL];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int k = 0; k < guber::N_SCAL; ++k) {
-    unsigned long long v = (unsigned long long)s[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) part[warp][k] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < guber::N_SCAL) {
-    unsigned long long t = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) t += part[w][threadIdx.x];
-    if (t != 0)
-      atomicAdd(reinterpret_cast<unsigned long long*>(a.scalars) + threadIdx.x,
-                t);
-  }
+  guber::block_add_scalars<kThreads>(s, a.scalars);
 }
 
 }  // namespace
@@ -86,28 +64,23 @@ extern "C" {
 // launched. Does not synchronise.
 int guber_decide_wave(const GuberWaveArgs* args, int layout, int paged,
                       void* stream) {
-  using guber::LAYOUT_FUSED;
-  using guber::LAYOUT_NARROW;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((layout != LAYOUT_FUSED && layout != LAYOUT_NARROW) ||
+  if ((layout != guber::LAYOUT_FUSED && layout != guber::LAYOUT_NARROW) ||
       (paged != 0 && paged != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaMemsetAsync(args->scalars, 0,
                                     guber::N_SCAL * sizeof(int64_t), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (args->batch + kThreads - 1) / kThreads;
-  if (layout == LAYOUT_FUSED && !paged)
-    decide_wave_kernel<LAYOUT_FUSED, false><<<blocks, kThreads, 0, st>>>(*args);
-  else if (layout == LAYOUT_FUSED)
-    decide_wave_kernel<LAYOUT_FUSED, true><<<blocks, kThreads, 0, st>>>(*args);
-  else if (!paged)
-    decide_wave_kernel<LAYOUT_NARROW, false><<<blocks, kThreads, 0, st>>>(*args);
-  else
-    decide_wave_kernel<LAYOUT_NARROW, true><<<blocks, kThreads, 0, st>>>(*args);
+  guber::dispatch(layout, paged, [&](auto L, auto P) {
+    decide_wave_kernel<decltype(L)::value, decltype(P)::value>
+        <<<blocks, kThreads, 0, st>>>(*args);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 
-// Human-readable name of a cudaError_t returned above.
+// Human-readable name of a cudaError_t returned above or by
+// guber_decide_scan (decide_scan.cu, built into the same library).
 const char* guber_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -27,14 +27,16 @@ BUILD_DIR = PKG_DIR / "_build"
 
 CUDA_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 
-# library name -> (compiler, main source, headers it includes)
+# library name -> (compiler, sources, headers they include)
 TARGETS = {
-    # the fused decide wave (replaces ops/pallas_decide.py::_make_kernel)
-    "decide_wave": ("nvcc", "decide_wave.cu", ("decide_lane.cuh",)),
+    # the decide kernels: one wave (replaces ops/pallas_decide.py::
+    # _make_kernel) and T waves in one cooperative launch (replaces
+    # decide_scan_flat / decide_scan_paged)
+    "decide_cuda": ("nvcc", ("decide_wave.cu", "decide_scan.cu"), ("decide_lane.cuh",)),
     # the same per-lane code compiled for the CPU; tests only
-    "decide_lane_host": ("g++", "decide_lane_host.cc", ("decide_lane.cuh",)),
+    "decide_lane_host": ("g++", ("decide_lane_host.cc",), ("decide_lane.cuh",)),
     # MurmurHash3 x64-128 key hasher (host)
-    "guberhash": ("g++", "guberhash.cc", ()),
+    "guberhash": ("g++", ("guberhash.cc",), ()),
 }
 
 _lock = threading.Lock()
@@ -65,17 +67,17 @@ def _nvcc() -> str:
 
 
 def _command(name: str, out: str) -> List[str]:
-    compiler, src, _ = TARGETS[name]
-    src_path = str(CSRC / src)
+    compiler, srcs, _ = TARGETS[name]
+    src_paths = [str(CSRC / s) for s in srcs]
     if compiler == "nvcc":
         return [
             _nvcc(), *CUDA_ARCH, "-std=c++17", "-O3", "-shared",
             "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-I", str(CSRC), "-o", out, src_path,
+            "-I", str(CSRC), "-o", out, *src_paths,
         ]
     return [
         "g++", "-std=c++17", "-O3", "-shared", "-fPIC",
-        "-I", str(CSRC), "-o", out, src_path,
+        "-I", str(CSRC), "-o", out, *src_paths,
     ]
 
 
@@ -83,8 +85,8 @@ def _stale(name: str) -> bool:
     so = lib_path(name)
     if not so.exists():
         return True
-    _, src, headers = TARGETS[name]
-    newest = max((CSRC / f).stat().st_mtime for f in (src, *headers))
+    _, srcs, headers = TARGETS[name]
+    newest = max((CSRC / f).stat().st_mtime for f in (*srcs, *headers))
     return so.stat().st_mtime < newest
 
 

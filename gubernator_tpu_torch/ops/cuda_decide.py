@@ -1,16 +1,19 @@
-"""The decide wave on Hopper: wrapper of the CUDA kernel in
-`csrc/decide_wave.cu`.
+"""The decide wave on Hopper: wrappers of the CUDA kernels in
+`csrc/decide_wave.cu` (one wave) and `csrc/decide_scan.cu` (T waves in
+one cooperative launch), built into one library.
 
 Counterpart of `gubernator_tpu/ops/pallas_decide.py` (`decide_flat`,
-`decide_flat_with_scan`, `decide_paged`, `decide_paged_with_scan`) for
-the fused and narrow layouts, on a flat table or a paged one. The kernel
-replaces that module's `_make_kernel` in these four static
-configurations; see the source for its design and bound.
+`decide_flat_with_scan`, `decide_paged`, `decide_paged_with_scan`, and
+the scans `decide_scan_flat`, `decide_scan_paged`) for the fused and
+narrow layouts, on a flat table or a paged one. The kernels replace that
+module's `_make_kernel` (one wave, or a `lax.scan` of waves) in these
+four static configurations each; see the sources for their design and
+bound.
 
 Dispatch is by the table's device and nothing else:
 
 - a CPU table runs the plain PyTorch version of the same configuration
-  (`ops/fused.py::wave_plain`);
+  (`ops/fused.py::wave_plain`, `scan_plain`);
 - a CUDA table launches the kernel or raises. A failed build or launch
   is never caught here, and the plain version never runs on the card.
 
@@ -28,6 +31,7 @@ import ctypes
 import threading
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from gubernator_tpu_torch.ops import _build, fused, narrow
@@ -44,15 +48,19 @@ _LAYOUT_CODE = {"fused": 0, "narrow": 1}
 _CODECS = {"fused": fused.FUSED_CODEC, "narrow": narrow.NARROW_CODEC}
 
 
-def config_name(layout: str, paged: bool) -> str:
+def config_name(layout: str, paged: bool, scan: bool = False) -> str:
     """Name of one kernel configuration: "decide_wave" (fused, flat),
-    "decide_wave_narrow", "decide_wave_paged", "decide_wave_narrow_paged"."""
-    return "decide_wave" + ("_narrow" if layout == "narrow" else "") + (
-        "_paged" if paged else ""
-    )
+    "decide_wave_narrow", "decide_wave_paged", "decide_wave_narrow_paged";
+    with `scan`, the same four of "decide_scan"."""
+    return ("decide_scan" if scan else "decide_wave") + (
+        "_narrow" if layout == "narrow" else ""
+    ) + ("_paged" if paged else "")
 
 
-CONFIGS = tuple(config_name(lay, p) for p in (False, True) for lay in _LAYOUT_CODE)
+CONFIGS = tuple(
+    config_name(lay, p, sc) for sc in (False, True) for p in (False, True)
+    for lay in _LAYOUT_CODE
+)
 
 # Kernel launches made by this module since import (or the last reset),
 # by configuration.
@@ -106,9 +114,14 @@ _BATCH_DTYPES = {
 }
 
 
-def _check(data, batch: RequestBatch, ways: int, layout: str,
-           page_map: Optional[torch.Tensor], gpp: int) -> int:
-    """Validate what the kernel takes; returns the lane count."""
+class _ScanArgs(ctypes.Structure):
+    """Mirror of `GuberScanArgs` in csrc/decide_lane.cuh."""
+
+    _fields_ = [("wave", _WaveArgs), ("nows", _P), ("steps", ctypes.c_int32)]
+
+
+def _check_table(data, ways: int, layout: str, page_map: Optional[torch.Tensor],
+                 gpp: int) -> None:
     if layout not in _LAYOUT_CODE:
         raise ValueError(f"the decide kernel takes layouts {tuple(_LAYOUT_CODE)}, not {layout!r}")
     ncols = _CODECS[layout].ncols
@@ -131,31 +144,61 @@ def _check(data, batch: RequestBatch, ways: int, layout: str,
             raise ValueError(f"bad page geometry: gpp={gpp}, {page_map.shape[0]} pages")
         if data.shape[0] % (gpp * ways):
             raise ValueError(f"table rows {data.shape[0]} not whole pages of {gpp * ways} slots")
-    b = batch.key_hi.shape[0]
-    if b >= 1 << 31:
-        raise ValueError("batch too large")
+
+
+def _check_batch(batch: RequestBatch, dev, ndim: int) -> Tuple[int, ...]:
+    """Every column a contiguous tensor on `dev` of its dtype and of one
+    shape, (B,) or (T, B) by `ndim`; returns that shape."""
+    shape = tuple(batch.key_hi.shape)
+    if len(shape) != ndim or shape[-1] >= 1 << 31:
+        raise ValueError(f"batch columns must be {'(B,)' if ndim == 1 else '(T, B)'}, B < 2^31, got {shape}")
     for f, dt in _BATCH_DTYPES.items():
         t = getattr(batch, f)
-        if not torch.is_tensor(t) or t.device != data.device:
-            raise ValueError(f"batch.{f} must be a tensor on {data.device}")
-        if t.dtype != dt or t.shape != (b,) or not t.is_contiguous():
-            raise ValueError(f"batch.{f} must be contiguous ({b},) {dt}, got {tuple(t.shape)} {t.dtype}")
-    return b
+        if not torch.is_tensor(t) or t.device != dev:
+            raise ValueError(f"batch.{f} must be a tensor on {dev}")
+        if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"batch.{f} must be contiguous {shape} {dt}, got {tuple(t.shape)} {t.dtype}")
+    return shape
 
 
-def _outputs(b: int, dev) -> Tuple[DecideOutput, WaveScan, list]:
+def _check(data, batch: RequestBatch, ways: int, layout: str,
+           page_map: Optional[torch.Tensor], gpp: int) -> int:
+    """Validate what the wave kernel takes; returns the lane count."""
+    _check_table(data, ways, layout, page_map, gpp)
+    return _check_batch(batch, data.device, 1)[0]
+
+
+def _check_scan(data, batches: RequestBatch, nows, ways: int, layout: str,
+                page_map: Optional[torch.Tensor], gpp: int):
+    """Validate what the scan kernel takes: (T, B) batch columns and T
+    `nows` (a tensor of int64, or anything numpy reads as integers),
+    returned as a contiguous (T,) int64 tensor on the table's device.
+    Returns (T, B, nows)."""
+    _check_table(data, ways, layout, page_map, gpp)
+    steps, b = _check_batch(batches, data.device, 2)
+    if not torch.is_tensor(nows):
+        nows = torch.from_numpy(np.asarray(nows, dtype=np.int64).reshape(-1))
+    if nows.dtype != torch.int64 or tuple(nows.shape) != (steps,):
+        raise ValueError(f"nows must be ({steps},) int64, got {tuple(nows.shape)} {nows.dtype}")
+    return steps, b, nows.to(data.device).contiguous()
+
+
+def _outputs(shape, dev) -> Tuple[DecideOutput, WaveScan, list]:
+    """Kernel outputs for lanes of `shape`, (B,) or (T, B): the lane
+    fields, and the 9 sums as (9,) or (T, 9) with the DecideOutput and
+    WaveScan sums viewed out of it; plus the pointers in kernel order."""
     i64 = dict(dtype=torch.int64, device=dev)
-    limit, remaining, reset_time, slot, ehi, elo = (torch.empty(b, **i64) for _ in range(6))
-    status = torch.empty(b, dtype=torch.int8, device=dev)
-    freed = torch.empty(b, dtype=torch.bool, device=dev)
-    scal = torch.empty(N_SCAL, **i64)
+    limit, remaining, reset_time, slot, ehi, elo = (torch.empty(shape, **i64) for _ in range(6))
+    status = torch.empty(shape, dtype=torch.int8, device=dev)
+    freed = torch.empty(shape, dtype=torch.bool, device=dev)
+    scal = torch.empty(tuple(shape[:-1]) + (N_SCAL,), **i64)
     out = DecideOutput(
         status=status, limit=limit, remaining=remaining, reset_time=reset_time,
         slot=slot, evicted_hi=ehi, evicted_lo=elo, freed=freed,
-        hits=scal[_S_HITS], misses=scal[_S_MISSES],
-        unexpired_evictions=scal[_S_EVICTS], over_limit=scal[_S_OVER],
+        hits=scal[..., _S_HITS], misses=scal[..., _S_MISSES],
+        unexpired_evictions=scal[..., _S_EVICTS], over_limit=scal[..., _S_OVER],
     )
-    scan = WaveScan(*(scal[k] for k in range(4, N_SCAL)))
+    scan = WaveScan(*(scal[..., k] for k in range(4, N_SCAL)))
     ptrs = [status, limit, remaining, reset_time, slot, ehi, elo, freed, scal]
     return out, scan, ptrs
 
@@ -172,22 +215,33 @@ def _wave_args(data, batch, now, ways, b, ptrs, page_map, gpp) -> _WaveArgs:
 
 
 def _decide_lib() -> ctypes.CDLL:
-    lib = _build.load("decide_wave")
+    """The library of both kernels (csrc/decide_wave.cu and
+    csrc/decide_scan.cu), built first if needed."""
+    lib = _build.load("decide_cuda")
     if lib.guber_decide_wave.argtypes is None:
         lib.guber_decide_wave.argtypes = [
             ctypes.POINTER(_WaveArgs), ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.guber_decide_wave.restype = ctypes.c_int
+        lib.guber_decide_scan.argtypes = [
+            ctypes.POINTER(_ScanArgs), ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.guber_decide_scan.restype = ctypes.c_int
         lib.guber_cuda_error_string.argtypes = [ctypes.c_int]
         lib.guber_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def load(device) -> None:
-    """Build/load what a decide on `device` needs (nothing for the CPU),
-    so a build failure surfaces at engine construction."""
+    """Build/load what a decide or a scan on `device` needs (nothing for
+    the CPU), so a build failure surfaces at engine construction."""
     if torch.device(device).type == "cuda":
         _decide_lib()
+
+
+def _count(name: str) -> None:
+    CONFIG_LAUNCHES[name] += 1
+    _tls.launches = thread_launches() + 1
 
 
 def _wave(data, page_map, batch, now, *, layout, ways, gpp):
@@ -202,7 +256,7 @@ def _wave(data, page_map, batch, now, *, layout, ways, gpp):
             _CODECS[layout], data, page_map, batch, now, ways=ways, gpp=gpp
         )
     lib = _decide_lib()
-    out, scan, ptrs = _outputs(b, dev)
+    out, scan, ptrs = _outputs((b,), dev)
     if b == 0:
         ptrs[-1].zero_()
         return out, scan
@@ -218,9 +272,43 @@ def _wave(data, page_map, batch, now, *, layout, ways, gpp):
         raise RuntimeError(
             f"{config_name(layout, paged)} launch failed: CUDA error {rc} ({msg})"
         )
-    CONFIG_LAUNCHES[config_name(layout, paged)] += 1
-    _tls.launches = thread_launches() + 1
+    _count(config_name(layout, paged))
     return out, scan
+
+
+def _scan(data, page_map, batches, nows, *, layout, ways, gpp) -> DecideOutput:
+    """A scan of T waves of configuration (layout, paged = page_map
+    given) over the rows `data`, in place, as ONE kernel launch: the
+    stacked outputs, (T, B) lanes and (T,) sums. T = 0 launches
+    nothing."""
+    dev = data.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"decide runs on cuda or cpu, not {dev}")
+    steps, b, nows = _check_scan(data, batches, nows, ways, layout, page_map, gpp)
+    if dev.type == "cpu":
+        return fused.scan_plain(
+            _CODECS[layout], data, page_map, batches, nows, ways=ways, gpp=gpp
+        )
+    lib = _decide_lib()
+    out, _scan_sums, ptrs = _outputs((steps, b), dev)
+    if steps == 0:
+        return out
+    args = _ScanArgs(
+        _wave_args(data, batches, 0, ways, b, ptrs, page_map, gpp),
+        nows.data_ptr(), steps,
+    )
+    paged = page_map is not None
+    name = config_name(layout, paged, scan=True)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.guber_decide_scan(
+            ctypes.byref(args), _LAYOUT_CODE[layout], int(paged), stream
+        )
+    if rc != 0:
+        msg = lib.guber_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+    _count(name)
+    return out
 
 
 def decide_flat_with_scan(
@@ -284,8 +372,63 @@ def decide_lane_code_on_host(
     fn = lib.guber_decide_wave_host
     fn.argtypes = [ctypes.POINTER(_WaveArgs), ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
-    out, scan, ptrs = _outputs(b, data.device)
+    out, scan, ptrs = _outputs((b,), data.device)
     args = _wave_args(data, batch, now, ways, b, ptrs, page_map, gpp)
     if fn(ctypes.byref(args), _LAYOUT_CODE[layout], int(page_map is not None)) != 0:
         raise RuntimeError("decide_lane_host failed")
     return table, out, scan
+
+
+def decide_scan_flat(
+    table, batches: RequestBatch, nows, *, layout: str = "fused",
+    ways: int = DEFAULT_WAYS,
+) -> Tuple[object, DecideOutput]:
+    """T decide waves on a flat table of `layout`, in order, the table
+    carried from step to step: (table, (T, B) batches, (T,) nows) ->
+    (table, outputs stacked (T, B) and (T,)), the table updated in place.
+    The counterpart of `pallas_decide.decide_scan_flat`. CPU table: the
+    plain version (`scan_plain`). CUDA table: the scan kernel, ONE
+    launch on PyTorch's current stream, without synchronising."""
+    out = _scan(table.data, None, batches, nows, layout=layout, ways=ways, gpp=0)
+    return table, out
+
+
+def decide_scan_paged(
+    pt, batches: RequestBatch, nows, *, layout: str, ways: int, gpp: int
+) -> Tuple[object, DecideOutput]:
+    """`decide_scan_flat` on a paged table, the page-map lookup inside
+    the kernel (Pallas sentinel semantics for lanes on non-resident
+    pages); the page map is left as it is. The counterpart of
+    `pallas_decide.decide_scan_paged`."""
+    out = _scan(
+        pt.data.data, pt.page_map, batches, nows, layout=layout, ways=ways, gpp=gpp
+    )
+    return pt, out
+
+
+def decide_scan_lane_code_on_host(
+    table, batches: RequestBatch, nows, *, ways: int = DEFAULT_WAYS,
+    layout: str = "fused", page_map: Optional[torch.Tensor] = None, gpp: int = 0,
+) -> Tuple[object, DecideOutput]:
+    """Tests only: the scan kernel's step loop and per-lane C++
+    (`step_args` and `decide_lane`, csrc/decide_lane.cuh) built by g++
+    and run step after step, lane after lane, on CPU tensors, so the CPU
+    test suite checks the scan's offsets and per-step sums. Same
+    arguments as `decide_scan_flat` (plus `page_map`/`gpp` for a paged
+    table's frames). No serving path calls this."""
+    data = table.data
+    if data.device.type != "cpu":
+        raise ValueError("decide_scan_lane_code_on_host takes CPU tensors")
+    steps, b, nows = _check_scan(data, batches, nows, ways, layout, page_map, gpp)
+    lib = _build.load("decide_lane_host")
+    fn = lib.guber_decide_scan_host
+    fn.argtypes = [ctypes.POINTER(_ScanArgs), ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    out, _sums, ptrs = _outputs((steps, b), data.device)
+    args = _ScanArgs(
+        _wave_args(data, batches, 0, ways, b, ptrs, page_map, gpp),
+        nows.data_ptr(), steps,
+    )
+    if fn(ctypes.byref(args), _LAYOUT_CODE[layout], int(page_map is not None)) != 0:
+        raise RuntimeError("decide_lane_host scan failed")
+    return table, out

@@ -14,8 +14,9 @@ lru<<4 | status<<2 | algo<<1 | used, see ops/packed.py):
 the five WaveScan sums. On a flat table it equals the layout's XLA
 program (`_decide_fused_impl`, `_decide_narrow_impl`). It is the
 reference the CUDA kernel (`ops/cuda_decide.py`) is held against and
-the path a CPU table takes. `decide_fused_plain` is its fused, flat
-form. Where JAX donates the table buffer, this version updates the
+the path a CPU table takes. `scan_plain` runs T such waves in order: the
+plain version of the scan kernel. `decide_fused_plain` is the wave's
+fused, flat form. Where JAX donates the table buffer, this version updates the
 table IN PLACE.
 """
 
@@ -343,6 +344,38 @@ def wave_plain(
         census_waste=(row_used & (exp_new <= now)).sum(),
     )
     return out, scan
+
+
+def scan_plain(
+    codec: RowCodec,
+    data: torch.Tensor,
+    page_map: Optional[torch.Tensor],
+    batches: RequestBatch,
+    nows,
+    *,
+    ways: int,
+    gpp: int = 0,
+) -> DecideOutput:
+    """T decide waves in order over the (N, C) rows `data`, updated in
+    place: step t is `wave_plain` of row t of the (T, B) `batches` at
+    `nows[t]`. Returns the steps' outputs stacked: (T, B) lanes and (T,)
+    sums (the WaveScan sums are dropped, as the JAX scans drop them).
+    The twin of gubernator_tpu's `decide_scan_fused` / `decide_scan_narrow`
+    and of `pallas_decide.decide_scan_flat` / `decide_scan_paged` (Pallas
+    sentinel semantics on a paged table, as `wave_plain`)."""
+    steps, b = batches.key_hi.shape
+    outs = [
+        wave_plain(codec, data, page_map, RequestBatch(*(c[t] for c in batches)),
+                   int(nows[t]), ways=ways, gpp=gpp)[0]
+        for t in range(steps)
+    ]
+    if not outs:  # no steps: (0, B) lanes and (0,) sums of the output dtypes
+        dtypes = {"status": torch.int8, "freed": torch.bool}
+        return DecideOutput(**{
+            f: torch.empty((0, b) if i < 8 else (0,), dtype=dtypes.get(f, I64), device=data.device)
+            for i, f in enumerate(DecideOutput._fields)
+        })
+    return DecideOutput(*(torch.stack(f) for f in zip(*outs)))
 
 
 def decide_fused_plain(

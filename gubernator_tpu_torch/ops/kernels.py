@@ -4,7 +4,8 @@ Two layouts are ported: `fused` (one (N, 10) int64 tensor, ops/fused.py)
 and `narrow` (one (N, 9) int64 tensor with a 5-column probe prefix,
 ops/narrow.py). Their `decide` dispatches by the table's device: the
 CUDA kernel (ops/cuda_decide.py) on a CUDA table, the plain PyTorch
-version on a CPU table. Snapshots are exchanged in the wide format
+version on a CPU table; `decide_scan` runs T waves in order, as one
+launch of the scan kernel on a CUDA table. Snapshots are exchanged in the wide format
 (to_wide/from_wide), the same format the JAX package uses.
 `get_paged_kernels` puts either layout behind a page map (ops/paged.py).
 """
@@ -26,6 +27,7 @@ class Kernels(NamedTuple):
     layout: str
     create: object  # (num_groups, ways, device) -> table
     decide: object  # (table, batch, now, ways) -> (table, DecideOutput), in place
+    decide_scan: object  # (table, (T, B) batches, (T,) nows, ways) -> (table, stacked outputs)
     load: object  # (device) -> None: build what decide needs there
     to_wide: object  # table -> SlotTable on the table's device
     from_wide: object  # (SlotTable, device) -> table
@@ -36,10 +38,14 @@ def _make(layout: str, module, table_cls, gather_rows) -> Kernels:
     def decide(table, batch, now, ways):
         return cuda_decide.decide_flat(table, batch, now, layout=layout, ways=ways)
 
+    def decide_scan(table, batches, nows, ways):
+        return cuda_decide.decide_scan_flat(table, batches, nows, layout=layout, ways=ways)
+
     return Kernels(
         layout=layout,
         create=table_cls.create,
         decide=decide,
+        decide_scan=decide_scan,
         load=cuda_decide.load,
         to_wide=module.unpack_table,
         from_wide=module.pack_table,

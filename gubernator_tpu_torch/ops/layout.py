@@ -125,12 +125,21 @@ def batch_prefix(batch: RequestBatch, n: int) -> RequestBatch:
     return RequestBatch(*(c[:n] for c in batch))
 
 
+def stack_batches(batches) -> RequestBatch:
+    """Host batches of one width -> one host batch of (T, B) columns,
+    step t in row t (the scan's operand)."""
+    return RequestBatch(*(np.stack(cols) for cols in zip(*batches)))
+
+
 def batch_to_device(batch: RequestBatch, device) -> RequestBatch:
     """Host numpy batch -> torch tensors on `device` with ONE host-to-
     device copy: the 14 columns are packed into one byte buffer (pinned
-    on CUDA, copied without blocking the host) and viewed back out."""
+    on CUDA, copied without blocking the host) and viewed back out.
+    Columns keep their shape, (B,) or (T, B); each is contiguous, so
+    step t of a stacked batch sits at offset t * B."""
     device = torch.device(device)
-    b = len(batch.key_hi)
+    shape = np.shape(batch.key_hi)
+    b = int(np.prod(shape))
     sizes = {f: np.dtype(BATCH_DTYPES[f]).itemsize * b for f in _PACK_ORDER}
     host = torch.empty(
         sum(sizes.values()), dtype=torch.uint8,
@@ -141,12 +150,12 @@ def batch_to_device(batch: RequestBatch, device) -> RequestBatch:
     off = 0
     for f in _PACK_ORDER:
         dt = np.dtype(BATCH_DTYPES[f])
-        h[off:off + sizes[f]].view(dt)[:] = getattr(batch, f)
+        h[off:off + sizes[f]].view(dt)[:] = np.ravel(getattr(batch, f))
         spans[f] = (off, off + sizes[f], _TORCH_DTYPES[dt])
         off += sizes[f]
     dev = host.to(device, non_blocking=True) if device.type != "cpu" else host
     return RequestBatch(
-        **{f: dev[a:e].view(t) for f, (a, e, t) in spans.items()}
+        **{f: dev[a:e].view(t).view(shape) for f, (a, e, t) in spans.items()}
     )
 
 

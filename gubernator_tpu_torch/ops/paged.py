@@ -11,7 +11,7 @@ device-resident int32 page map routes every logical group:
 
 The decide wave does that lookup inside the CUDA kernel
 (`cuda_decide.decide_paged`, the counterpart of `pallas_decide.
-decide_paged`); a lane whose page is not resident is a sentinel lane
+decide_paged`, and the scan `cuda_decide.decide_scan_paged`); a lane whose page is not resident is a sentinel lane
 that loads and stores nothing and reports slot == N. A CPU table runs
 the plain version with the same (Pallas) semantics. The runtime pager
 (`runtime/pager.py`) promotes a wave's pages before the wave runs, so
@@ -76,6 +76,7 @@ class PagedKernels(NamedTuple):
     layout: str
     create: object  # (*ignored) -> PagedTable: zeroed frames, empty map
     decide: object  # (pt, batch, now, ways) -> (pt, DecideOutput), in place
+    decide_scan: object  # (pt, (T, B) batches, (T,) nows, ways) -> (pt, stacked outputs)
     load: object  # (device) -> None: build what decide needs there
     to_wide: object  # pt -> SlotTable view of the PHYSICAL table
     from_wide: object  # raises NotImplementedError
@@ -136,6 +137,13 @@ def make_paged_kernels(
             raise ValueError(f"this paged table has {ways} ways, not {w}")
         return cuda_decide.decide_paged(pt, batch, now, layout=layout, ways=ways, gpp=gpp)
 
+    def _decide_scan(pt, batches, nows, w=ways):
+        if w != ways:
+            raise ValueError(f"this paged table has {ways} ways, not {w}")
+        return cuda_decide.decide_scan_paged(
+            pt, batches, nows, layout=layout, ways=ways, gpp=gpp
+        )
+
     def _bind_page(pt, lp, pp):
         _frame(pt, pp).zero_()
         pt.page_map[int(lp)] = int(pp)
@@ -175,6 +183,7 @@ def make_paged_kernels(
         layout=layout,
         create=_create,
         decide=_decide,
+        decide_scan=_decide_scan,
         load=base.load,
         to_wide=lambda pt: base.to_wide(pt.data),
         from_wide=_from_wide,

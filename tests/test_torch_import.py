@@ -71,8 +71,11 @@ def test_source_imports_no_jax_or_reference_package(path):
     "gubernator_tpu_torch.ops.narrow",
     "gubernator_tpu_torch.ops.paged",
     "gubernator_tpu_torch.runtime.pager",
+    "gubernator_tpu_torch.bench",
+    "gubernator_tpu_torch.ops.cuda_decide",
 ])
 def test_slice_modules_are_checked(module):
-    """The narrow layout, the paged table and the pager are among the
-    modules imported above with jax and gubernator_tpu blocked."""
+    """The narrow layout, the paged table, the pager, the bench and the
+    scan wrapper are among the modules imported above with jax and
+    gubernator_tpu blocked."""
     assert module in _port_modules()

@@ -1,0 +1,240 @@
+"""The port's scan of decide waves against the JAX package's.
+
+T seeded waves (`fuzz_wave` of test_torch_decide.py; its hot keys keep
+their groups, so groups repeat from step to step and each step reads the
+rows the step before it stored) are stacked into (T, B) columns and go
+through:
+
+- `gubernator_tpu_torch.ops.kernels.get_kernels(layout).decide_scan` on
+  a CPU table (the plain version, `ops/fused.py::scan_plain`);
+- `cuda_decide.decide_scan_lane_code_on_host` (the scan kernel's step
+  loop and per-lane C++, built by g++);
+- `gubernator_tpu.ops.kernels.get_kernels(layout).decide_scan` with
+  `GUBER_KERNEL=xla` (the XLA `lax.scan`);
+- `gubernator_tpu.ops.pallas_decide.decide_scan_flat` /
+  `decide_scan_paged` in the reference lowering and, for one small case,
+  in interpret mode (the Pallas kernel body itself).
+
+The paged scan has lanes on non-resident pages (a scrambled map, as in
+test_torch_paged.py), so it is held against the Pallas scan only: the
+XLA paged scan translates such lanes differently (see
+tests/test_kernel_fuzz.py, which holds the two together on all-resident
+waves). Tolerance: none. Every (T, B) field, the (T,) sums and the
+whole table are compared bit for bit.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gubernator_tpu.ops import fused as jfused
+from gubernator_tpu.ops import narrow as jnarrow
+from gubernator_tpu.ops import pallas_decide as jpallas
+from gubernator_tpu.ops.kernels import get_kernels as jget_kernels
+from gubernator_tpu_torch.ops import cuda_decide, fused, narrow
+from gubernator_tpu_torch.ops.kernels import get_kernels
+from gubernator_tpu_torch.ops.layout import (
+    RequestBatch,
+    batch_to_device,
+    stack_batches,
+)
+from test_torch_decide import NOW, NUM_GROUPS, OUT_FIELDS, WAYS, _waves, assert_out_equal
+from test_torch_paged import (
+    GPP,
+    N_PHYS,
+    jax_table,
+    paged_waves,
+    port_table,
+)
+
+_UNPACK = {"fused": (fused.unpack_table, jfused.unpack_table),
+           "narrow": (narrow.unpack_table, jnarrow.unpack_table)}
+
+
+def stacked(waves):
+    """(host (T, B) batch, nows) of a list of (wave, now)."""
+    return (stack_batches([w for w, _ in waves]),
+            np.array([n for _, n in waves], np.int64))
+
+
+def to_jax(sb):
+    from gubernator_tpu.ops.layout import RequestBatch as JBatch
+
+    return JBatch(*(jnp.asarray(c) for c in sb))
+
+
+def assert_table_equal(port_table, jax_table, layout, tag):
+    """Raw rows and the wide view, column by column."""
+    assert np.array_equal(port_table.data.numpy(), np.asarray(jax_table.data)), f"{tag}: rows"
+    pw, jw = (u(t) for u, t in zip(_UNPACK[layout], (port_table, jax_table)))
+    for f in pw._fields:
+        a, r = getattr(pw, f).numpy(), np.asarray(getattr(jw, f))
+        assert a.dtype == r.dtype and np.array_equal(a, r), f"{tag}: table column {f}"
+
+
+def assert_port_equal(a, b, tag):
+    for f in OUT_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype and x.shape == y.shape, (tag, f, x.dtype, y.dtype, x.shape, y.shape)
+        assert torch.equal(x, y), f"{tag}: {f} diverged"
+
+
+def _repeats(waves):
+    """Active groups a step shares with the step before it."""
+    n = 0
+    for (a, _), (b, _) in zip(waves, waves[1:]):
+        n += len(set(a.group[a.active].tolist()) & set(b.group[b.active].tolist()))
+    return n
+
+
+@pytest.mark.parametrize("seed", [21, 22])
+@pytest.mark.parametrize("layout", ["fused", "narrow"])
+def test_scan_matches_xla_pallas_and_lane_code(layout, seed, monkeypatch):
+    """Flat scan: the port's registry entry (plain version) and the scan
+    kernel's host build against the XLA scan and the Pallas reference
+    scan: stacked outputs and the final table."""
+    monkeypatch.setenv("GUBER_KERNEL", "xla")
+    monkeypatch.setenv("GUBER_PALLAS_INTERPRET", "0")
+    waves = _waves(seed, 5)
+    assert _repeats(waves) > 20, "consecutive steps must share groups"
+    sb, nows = stacked(waves)
+    K = get_kernels(layout)
+    pt, po = K.decide_scan(K.create(NUM_GROUPS, WAYS, "cpu"), batch_to_device(sb, "cpu"), nows, WAYS)
+    kt, ko = cuda_decide.decide_scan_lane_code_on_host(
+        K.create(NUM_GROUPS, WAYS, "cpu"), batch_to_device(sb, "cpu"), nows,
+        ways=WAYS, layout=layout,
+    )
+    JK = jget_kernels(layout)
+    jx, xo = JK.decide_scan(JK.create(NUM_GROUPS, WAYS), to_jax(sb), jnp.asarray(nows), WAYS)
+    jp, pallas_o = jpallas.decide_scan_flat(
+        JK.create(NUM_GROUPS, WAYS), to_jax(sb), jnp.asarray(nows), layout=layout, ways=WAYS
+    )
+    tag = f"{layout}/seed{seed}"
+    assert po.status.shape == (5, 64) and po.hits.shape == (5,)
+    assert_out_equal(po, xo, tag + "/xla")
+    assert_out_equal(po, pallas_o, tag + "/pallas")
+    assert_port_equal(ko, po, tag + "/lane code")
+    assert_table_equal(pt, jx, layout, tag + "/xla")
+    assert_table_equal(pt, jp, layout, tag + "/pallas")
+    assert torch.equal(kt.data, pt.data), f"{tag}: lane code table"
+
+
+def test_scan_matches_pallas_interpret(monkeypatch):
+    """One small scan through the Pallas kernel body itself (fused,
+    interpret mode)."""
+    monkeypatch.setenv("GUBER_PALLAS_INTERPRET", "1")
+    assert jpallas.pallas_mode() == "interpret"
+    waves = _waves(23, 3)
+    sb, nows = stacked(waves)
+    K = get_kernels("fused")
+    pt, po = K.decide_scan(K.create(NUM_GROUPS, WAYS, "cpu"), batch_to_device(sb, "cpu"), nows, WAYS)
+    jt, jo = jpallas.decide_scan_flat(
+        jfused.FusedTable.create(NUM_GROUPS, WAYS), to_jax(sb), jnp.asarray(nows),
+        layout="fused", ways=WAYS,
+    )
+    assert_out_equal(po, jo, "interpret")
+    assert_table_equal(pt, jt, "fused", "interpret")
+
+
+@pytest.mark.parametrize("layout", ["fused", "narrow"])
+def test_paged_scan_matches_pallas_reference(layout, monkeypatch):
+    """Paged scan over a scrambled page map (sentinel lanes in every
+    step): the port's paged registry entry and the scan kernel's host
+    build against the Pallas reference scan; physical rows and the page
+    map after the scan."""
+    monkeypatch.setenv("GUBER_PALLAS_INTERPRET", "0")
+    waves = paged_waves(43, 4)
+    sb, nows = stacked(waves)
+    PK, pt = port_table(layout)
+    pm0 = pt.page_map.clone()
+    pt, po = PK.decide_scan(pt, batch_to_device(sb, "cpu"), nows, WAYS)
+    _, kpt = port_table(layout)
+    _, ko = cuda_decide.decide_scan_lane_code_on_host(
+        kpt.data, batch_to_device(sb, "cpu"), nows, ways=WAYS, layout=layout,
+        page_map=kpt.page_map, gpp=GPP,
+    )
+    _, jpt = jax_table(layout, monkeypatch)
+    jpt, jo = jpallas.decide_scan_paged(
+        jpt, to_jax(sb), jnp.asarray(nows), layout=layout, ways=WAYS, gpp=GPP
+    )
+    tag = f"paged/{layout}"
+    assert int((sb.active & (po.slot.numpy() == N_PHYS)).sum()) > 30, "sentinel lanes"
+    assert_out_equal(po, jo, tag)
+    assert_port_equal(ko, po, tag + "/lane code")
+    assert np.array_equal(pt.data.data.numpy(), np.asarray(jpt.data.data)), f"{tag}: rows"
+    assert torch.equal(pt.page_map, pm0) and np.array_equal(pm0.numpy(), np.asarray(jpt.page_map))
+    assert torch.equal(kpt.data.data, pt.data.data), f"{tag}: lane code rows"
+    with pytest.raises(ValueError):
+        PK.decide_scan(pt, batch_to_device(sb, "cpu"), nows, WAYS + 1)
+
+
+@pytest.mark.parametrize("layout", ["fused", "narrow"])
+def test_scan_equals_successive_waves(layout):
+    """A scan equals T calls of the port's single-wave decide, one per
+    step, including a step whose lanes are all inactive (it reads and
+    writes nothing, its sums are 0)."""
+    waves = _waves(24, 4)
+    idle = RequestBatch(*(c.copy() for c in waves[2][0]))
+    idle.active[:] = False
+    waves[2] = (idle, waves[2][1])
+    sb, nows = stacked(waves)
+    K = get_kernels(layout)
+    st, so = K.decide_scan(K.create(NUM_GROUPS, WAYS, "cpu"), batch_to_device(sb, "cpu"), nows, WAYS)
+    wt = K.create(NUM_GROUPS, WAYS, "cpu")
+    for t, (w, now) in enumerate(waves):
+        wt, wo = K.decide(wt, batch_to_device(w, "cpu"), now, WAYS)
+        for f in OUT_FIELDS:
+            assert torch.equal(getattr(so, f)[t], getattr(wo, f)), (t, f)
+    assert torch.equal(st.data, wt.data)
+    assert int(so.hits[2]) == int(so.misses[2]) == int(so.over_limit[2]) == 0
+    assert bool((so.slot[2] == NUM_GROUPS * WAYS).all())
+
+
+def test_scan_of_no_steps():
+    """T = 0: empty stacks of the output dtypes, the table unchanged,
+    nothing launched (plain version and host build)."""
+    before = dict(cuda_decide.CONFIG_LAUNCHES)
+    sb = stack_batches([RequestBatch.zeros(8)])
+    sb = RequestBatch(*(c[:0] for c in sb))
+    assert sb.key_hi.shape == (0, 8)
+    K = get_kernels("narrow")
+    t0 = K.create(NUM_GROUPS, WAYS, "cpu")
+    for run in (
+        lambda t: K.decide_scan(t, batch_to_device(sb, "cpu"), [], WAYS),
+        lambda t: cuda_decide.decide_scan_lane_code_on_host(
+            t, batch_to_device(sb, "cpu"), np.zeros(0, np.int64), ways=WAYS, layout="narrow"),
+    ):
+        t, out = run(K.create(NUM_GROUPS, WAYS, "cpu"))
+        assert torch.equal(t.data, t0.data)
+        assert out.status.shape == (0, 8) and out.status.dtype == torch.int8
+        assert out.freed.dtype == torch.bool and out.slot.dtype == torch.int64
+        assert out.hits.shape == (0,) and out.over_limit.dtype == torch.int64
+    assert dict(cuda_decide.CONFIG_LAUNCHES) == before
+
+
+def test_stacked_batch_to_device_and_checks():
+    """stack_batches + batch_to_device keep (T, B) columns contiguous with
+    step t at row t; the scan wrapper refuses a (B,) batch, nows of the
+    wrong length and an int32 nows tensor; the scan configurations are
+    counted apart from the wave's."""
+    waves = _waves(25, 3)
+    sb, nows = stacked(waves)
+    db = batch_to_device(sb, "cpu")
+    for f in RequestBatch._fields:
+        col = getattr(db, f)
+        assert col.shape == (3, 64) and col.is_contiguous()
+        for t, (w, _) in enumerate(waves):
+            assert np.array_equal(col[t].numpy(), getattr(w, f)), f
+    K = get_kernels("fused")
+    t = K.create(NUM_GROUPS, WAYS, "cpu")
+    with pytest.raises(ValueError):
+        K.decide_scan(t, batch_to_device(waves[0][0], "cpu"), nows[:1], WAYS)
+    with pytest.raises(ValueError):
+        K.decide_scan(t, db, nows[:2], WAYS)
+    with pytest.raises(ValueError):
+        K.decide_scan(t, db, torch.from_numpy(nows).to(torch.int32), WAYS)
+    assert {"decide_scan", "decide_scan_narrow", "decide_scan_paged",
+            "decide_scan_narrow_paged"} <= set(cuda_decide.CONFIG_LAUNCHES)
+    assert len(cuda_decide.CONFIGS) == 8
