@@ -3,10 +3,11 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the port's native code from the checkout (the CUDA decide-wave
-kernel and the CUDA decide-scan kernel, one nvcc source each holding
-four configurations, built for sm_90a into one library, and the key
-hasher with g++, both compilers started at once), then drives it at two
-sizes and prints one JSON line per phase:
+and decide-scan kernels, four configurations each, and the sharded
+decide-wave kernel, two configurations, one nvcc per source, all built
+for sm_90a and linked into one library, and the key hasher with g++,
+every compiler started at once), then drives it at two sizes and prints
+one JSON line per phase:
 
 - 1M (BASELINE.json config 3, "1M-key Zipfian"): a flat table of 2^18
   groups x 8 ways holding 1,000,000 live keys; kernel configurations
@@ -60,6 +61,21 @@ Phases, for each size:
    of that configuration equal to waves and > 0, and (paged) pages
    promoted and demoted, with host-clock spans of the pager's
    ensure_resident, demote and promote.
+6. mesh_kernel, per layout: the sharded kernel (`decide_sharded.cu`,
+   the mesh tier's `raw_decide_flat` per shard plus the psum, one launch
+   for 8 shards of the table on the card) against its plain version
+   (the masked wave on every shard's rows, then the sum) and the wave
+   kernel of the same table, 16 waves of 1024 lanes: bit-exact on every
+   output field and the 9 scalars, the three tables equal after every
+   wave, and the wave kernel's answers equal on every owned lane with
+   the psum's slot. Flat on the 1M image; on the 10M frames with the
+   scrambled map, whose non-resident lanes no shard owns.
+7. mesh_times: phase 2's times for the sharded kernel (8 shards).
+8. mesh_main_path: `V1Service` over an `IciEngine` of 8 shards on the
+   card per configuration (1M flat; 10M paged, 96 frames of the 768 per
+   shard), on phase 5's calls and clock, against phase 5's CPU engine:
+   every response and the snapshot equal, one sharded-kernel launch per
+   wave, no other configuration launched.
 
 Then the bench (`gubernator_tpu_torch/bench.py`, the port of the repo's
 `bench.py` device modes), each run with the launch counts set to 0 just
@@ -114,6 +130,7 @@ from gubernator_tpu_torch.ops.layout import (  # noqa: E402
 )
 from gubernator_tpu_torch.ops.paged import PagedTable  # noqa: E402
 from gubernator_tpu_torch.runtime.engine import DeviceEngine, EngineConfig  # noqa: E402
+from gubernator_tpu_torch.runtime.ici_engine import IciEngine, IciEngineConfig  # noqa: E402
 from gubernator_tpu_torch.service.server import V1Service  # noqa: E402
 from gubernator_tpu_torch.utils import clock as _clock  # noqa: E402
 
@@ -139,6 +156,9 @@ ITEMS = 1000
 SCAN_T = 32  # steps per scan, as the bench's chunk
 SCAN_B = 4096  # lanes per step, as the bench's batch
 SCAN_REPS = 20
+# Shards of the mesh tier on the one card: the JAX package's mesh size
+# (its tests fake 8 devices; the v5e-8 north star)
+MESH_SHARDS = 8
 NOW = 1_753_700_000_000
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the
 # non-tensor float32 rate, taken as the scalar-ALU ceiling for the
@@ -306,7 +326,13 @@ def _rows(table) -> torch.Tensor:
     return table.data.data if isinstance(table, PagedTable) else table.data
 
 
-def run_kernel(table, db, now: int, layout: str, gpp: int):
+def run_kernel(table, db, now: int, layout: str, gpp: int, shards: int = 0):
+    """One wave of the wave kernel, or with `shards` of the sharded
+    kernel (MESH_SHARDS shards of the table on the card)."""
+    if shards:
+        pm = table.page_map if isinstance(table, PagedTable) else None
+        return cuda_decide.decide_sharded(_rows(table), pm, db, now, layout=layout, ways=WAYS,
+                                          n_shards=shards, gpp=gpp)
     if isinstance(table, PagedTable):
         _, out, scan = cuda_decide.decide_paged_with_scan(
             table, db, now, layout=layout, ways=WAYS, gpp=gpp
@@ -318,8 +344,11 @@ def run_kernel(table, db, now: int, layout: str, gpp: int):
     return out, scan
 
 
-def run_plain(table, db, now: int, layout: str, gpp: int):
+def run_plain(table, db, now: int, layout: str, gpp: int, shards: int = 0):
     pm = table.page_map if isinstance(table, PagedTable) else None
+    if shards:
+        return fused.sharded_plain(CODEC[layout], _rows(table), pm, db, now, ways=WAYS,
+                                   n_shards=shards, gpp=gpp)
     return fused.wave_plain(CODEC[layout], _rows(table), pm, db, now, ways=WAYS, gpp=gpp)
 
 
@@ -330,28 +359,29 @@ def resident_lanes(hb: RequestBatch, size: Size, page_map) -> np.ndarray:
 
 
 def wave_bytes(hb: RequestBatch, layout: str, resident: np.ndarray, paged: bool,
-               hits: int) -> int:
+               hits: int, freed_bytes: int = 1) -> int:
     """Bytes one wave must move: each active lane's batch columns read
     once (an inactive lane reads only its `active` flag), every output
     written once, per active resident lane its group's probe columns
     over the W ways and the new row, the rest of the chosen row for each
     of the `hits` lanes with a live match (the only lanes that need it),
     and (paged) one page-map word per active lane. Sentinel lanes touch
-    no row."""
+    no row. `freed` is one byte (bool), or 4 for the sharded wave
+    (int32)."""
     lanes = len(hb.active)
     active = hb.active
     n_active = int(np.count_nonzero(active))
     batch_in = (n_active * sum(np.dtype(dt).itemsize for dt in BATCH_DTYPES.values())
                 + (lanes - n_active) * np.dtype(BATCH_DTYPES["active"]).itemsize)
-    outs = lanes * (1 + 6 * 8 + 1) + 9 * 8
+    outs = lanes * (1 + 6 * 8 + freed_bytes) + 9 * 8
     probe, rest, store = ROW_BYTES[layout]
     rows = int(np.count_nonzero(active & resident)) * (WAYS * probe + store) + hits * rest
     pmap = n_active * 4 if paged else 0
     return batch_in + outs + rows + pmap
 
 
-def bound_ms(hb, layout, resident, paged, hits):
-    t_bytes = wave_bytes(hb, layout, resident, paged, hits) / HBM_BYTES_PER_S * 1e3
+def bound_ms(hb, layout, resident, paged, hits, freed_bytes=1):
+    t_bytes = wave_bytes(hb, layout, resident, paged, hits, freed_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = int(np.count_nonzero(hb.active)) * OPS_PER_LANE / SCALAR_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -434,6 +464,64 @@ def phase_kernel(rng, image, size, layout, page_map):
     return kt, pt, err
 
 
+def phase_mesh_kernel(rng, image, size, layout, page_map):
+    """The sharded kernel, MESH_SHARDS shards of the table on the card,
+    against its plain version (the masked wave on every shard's rows,
+    then the sum) and against the wave kernel of the same table (flat,
+    or paged with the same page map), each on its own copy of the table:
+    WAVES waves of B lanes. Every output field and the 9 sums bit-exact
+    against the plain version; after every wave the three tables equal
+    (a paged sentinel lane stores nothing in either kernel); the wave
+    kernel's answers equal the sharded ones on every owned lane, with
+    the psum's slot (local slot + (D - 1) * n_local) and int32 freed."""
+    name = cuda_decide.sharded_name(layout)
+    paged = page_map is not None
+    gpp = size.page_groups
+    kt, pt = kernel_tables(image, size, layout, page_map)
+    wt = PagedTable(type(kt.data)(kt.data.data.clone()), kt.page_map.clone()) if paged \
+        else type(kt)(kt.data.clone())
+    n = _rows(kt).shape[0]
+    n_local = n // MESH_SHARDS
+    sync()
+    before = cuda_decide.CONFIG_LAUNCHES[name]
+    now = NOW
+    err = 0.0
+    unowned = 0
+    for w in range(WAVES):
+        now += int(rng.choice([0, 1, 250, 2000]))
+        hb = smoke_wave(rng, image, now, size.num_groups)
+        db = batch_to_device(hb, DEVICE)
+        ko, ks = run_kernel(kt, db, now, layout, gpp, MESH_SHARDS)
+        po, ps = run_plain(pt, db, now, layout, gpp, MESH_SHARDS)
+        wo, _ = run_kernel(wt, db, now, layout, gpp)
+        sync()
+        err = max(err, _max_abs_err(ko, po, ks, ps))
+        for ref, what in ((pt, "the plain version"), (wt, "the wave kernel")):
+            if not torch.equal(_rows(kt), _rows(ref)):
+                rows = int((_rows(kt) != _rows(ref)).any(dim=1).sum())
+                raise AssertionError(f"{name} wave {w}: table differs from {what} in {rows} rows")
+        owned = db.active & (wo.slot < n)
+        want_slot = torch.where(owned, wo.slot % n_local + (MESH_SHARDS - 1) * n_local,
+                                MESH_SHARDS * n_local)
+        if not torch.equal(ko.slot, want_slot):
+            raise AssertionError(f"{name} wave {w}: slot is not the psum of the shards' slots")
+        for f in ("status", "limit", "remaining", "reset_time", "evicted_hi", "evicted_lo", "freed"):
+            a, r = getattr(ko, f)[owned], getattr(wo, f)[owned]
+            if not torch.equal(a.to(torch.int64), r.to(torch.int64)):
+                raise AssertionError(f"{name} wave {w}: {f} differs from the wave kernel's")
+        if not (ko.status[~owned] == 0).all() or not (ko.remaining[~owned] == 0).all():
+            raise AssertionError(f"{name} wave {w}: an unowned lane has an answer")
+        unowned += int((db.active & ~owned).sum())
+    res = {"phase": "mesh_kernel", "size": size.name, "kernel": name, "ok": True,
+           "shards": MESH_SHARDS, "paged": paged, "waves": WAVES, "batch": B,
+           "table_rows": n, "rows_per_shard": n_local,
+           "active_unowned_lanes": unowned,
+           "launches": cuda_decide.CONFIG_LAUNCHES[name] - before,
+           "max_abs_err": err, "tolerance": "bit-exact (int64)"}
+    emit(res)
+    return kt, pt, err
+
+
 def _median_ms(fn, reps, flush, hold_cycles=0):
     """Median of `reps` launches timed one by one with CUDA events, L2
     flushed before each. With `hold_cycles` the stream first spins that
@@ -474,15 +562,17 @@ def _profiled_device_ms(fn, reps, kernel="decide_wave_kernel"):
     return total_us / count / 1e3 if count and total_us > 0 else None
 
 
-def phase_times(rng, image, size, layout, page_map, kt, pt, card):
+def phase_times(rng, image, size, layout, page_map, kt, pt, card, shards=0):
     """Times at the main path's shape (B = 1024), each over fresh waves
     of distinct groups so the group blocks come from HBM, not L2. A
     paged wave draws its groups from resident pages only, as the main
     path gives them (no sentinel lanes). The bound of each launch timed
     in (a) counts the live matches that launch found. `card` is
-    nvidia-smi's name and power limit, printed beside them."""
+    nvidia-smi's name and power limit, printed beside them. With
+    `shards`, the sharded kernel over that many shards of the table (the
+    phase `mesh_times`)."""
     paged = page_map is not None
-    name = cuda_decide.config_name(layout, paged)
+    name = cuda_decide.sharded_name(layout) if shards else cuda_decide.config_name(layout, paged)
     gpp = size.page_groups
     reps = 200
     now = NOW + 60_000
@@ -501,7 +591,7 @@ def phase_times(rng, image, size, layout, page_map, kt, pt, card):
     def kernel():
         i = state["i"] % reps
         state["i"] += 1
-        out, _ = run_kernel(kt, dbs[i], now, layout, gpp)
+        out, _ = run_kernel(kt, dbs[i], now, layout, gpp, shards)
         return i, out.hits
 
     def kernel_a():
@@ -510,7 +600,7 @@ def phase_times(rng, image, size, layout, page_map, kt, pt, card):
     def plain():
         db = dbs[state["i"] % reps]
         state["i"] += 1
-        run_plain(pt, db, now, layout, gpp)
+        run_plain(pt, db, now, layout, gpp, shards)
 
     for _ in range(10):
         kernel()
@@ -535,15 +625,16 @@ def phase_times(rng, image, size, layout, page_map, kt, pt, card):
         e.synchronize()
         runs.append(s.elapsed_time(e) / reps)
     # (c) the kernel's own device time, from the profiler's trace
-    dev_ms = _profiled_device_ms(kernel, reps)
+    dev_ms = _profiled_device_ms(
+        kernel, reps, "decide_sharded_kernel" if shards else "decide_wave_kernel")
     plain()
     sync()
     p_ms = _median_ms(plain, 20, flush)
     hits = torch.stack([h for _, h in timed]).tolist()
-    bounds = [bound_ms(hbs[i], layout, resident[i], paged, h)
+    bounds = [bound_ms(hbs[i], layout, resident[i], paged, h, 4 if shards else 1)
               for (i, _), h in zip(timed, hits)]
     b_ms = statistics.median(b for b, _ in bounds)
-    res = {"phase": "times", "size": size.name, "kernel": name,
+    res = {"phase": "mesh_times" if shards else "times", "size": size.name, "kernel": name,
            "kernel_ms_median": k_ms, "launch_path_ms_median": path_ms,
            "kernel_ms_run": statistics.median(runs), "kernel_ms_runs": runs,
            "kernel_device_ms_profiler": dev_ms, "plain_ms_median": p_ms,
@@ -552,6 +643,8 @@ def phase_times(rng, image, size, layout, page_map, kt, pt, card):
            "active_lanes_per_wave_median": statistics.median(
                int(np.count_nonzero(hb.active)) for hb in hbs),
            "reps_kernel": reps, "reps_plain": 20, "card": card}
+    if shards:
+        res.update(shards=shards, paged=paged)
     emit(res)
     del flush
     return res
@@ -891,7 +984,9 @@ def _serve(svc, calls, clk, spans=None):
 
 def phase_main_path(rng, image: SlotTable, size: Size):
     """One CPU reference engine (flat, fused) and, on the same calls and
-    frozen clock, a CUDA engine per configuration of the size."""
+    frozen clock, a CUDA engine per configuration of the size. Returns
+    the lines, and (snapshot of the image, calls, CPU responses, CPU
+    snapshot) for the mesh main path."""
     snap = {f: getattr(image, f) for f in SlotTable._fields}
     snap["key_strings"] = {}
     calls = smoke_calls(rng, size.live_keys)
@@ -973,16 +1068,86 @@ def phase_main_path(rng, image: SlotTable, size: Size):
                 raise AssertionError(f"{name}: no page was promoted and demoted")
             results[name] = res
             free_device()
+    return results, (snap, calls, want, csnap)
+
+
+def phase_mesh_main_path(size: Size, reference):
+    """`V1Service` over an `IciEngine` of MESH_SHARDS shards on the card,
+    per layout of the size (flat at 1M, paged at 10M: the page budget
+    split into one frame pool per shard), on the calls and frozen clock
+    of the main path, against the CPU engine's responses and snapshot
+    (`reference`, from `phase_main_path`). One sharded-kernel launch per
+    wave; no other configuration launches."""
+    snap, calls, want, csnap = reference
+    base = dict(num_groups=size.num_groups, ways=WAYS, batch_size=B,
+                devices=[DEVICE] * MESH_SHARDS)
+    results = {}
+    with _clock.freeze(NOW) as clk:
+        for layout, paged in size.configs:
+            name = cuda_decide.sharded_name(layout)
+            pcfg = dict(page_groups=size.page_groups, page_budget=size.page_budget) if paged else {}
+            eng = IciEngine(IciEngineConfig(layout=layout, **base, **pcfg))
+            try:
+                eng.restore(snap)
+                st0 = eng.stats()
+                spans = _PagerSpans(eng._pager) if paged else None
+                sync()
+                cuda_decide.reset_launches()
+                got, secs, _ = _serve(V1Service(eng), calls, clk, spans)
+                launches = dict(cuda_decide.CONFIG_LAUNCHES)
+                st = eng.stats()
+                msnap = eng.snapshot()
+                shard_pages = eng._pager.pages_snapshot()["shards"] if paged else None
+            finally:
+                eng.close()
+            mismatches = sum(a != b for gc, wc in zip(got, want) for a, b in zip(gc, wc))
+            errors = sum(bool(r[4]) for gc in got for r in gc)
+            snap_diff = [f for f in SlotTable._fields if not np.array_equal(msnap[f], csnap[f])]
+            if msnap["key_strings"] != csnap["key_strings"]:
+                snap_diff.append("key_strings")
+            del msnap
+            decisions = sum(len(c) for c in calls)
+            res = {"phase": "mesh_main_path", "size": size.name, "kernel": name,
+                   "shards": st["n_dev"], "paged": paged, "calls": len(calls),
+                   "items": decisions, "flushes": st["flushes"], "waves": st["waves"],
+                   "engine_kernel_launches": st["kernel_launches"],
+                   "launches": launches[name],
+                   "other_kernel_launches": sum(launches.values()) - launches[name],
+                   "response_mismatches": mismatches, "error_responses": errors,
+                   "snapshot_columns_differing": snap_diff,
+                   "over_limit": st["over_limit"], "cache_hits": st["cache_hits"],
+                   "cache_misses": st["cache_misses"],
+                   "decisions_per_s": decisions / secs, "seconds": secs}
+            if paged:
+                res.update({k: st[k] - st0[k] for k in ("promotes", "demotes", "binds")})
+                res.update(resident_pages=st["resident_pages"], host_pages=st["host_pages"],
+                           host_pages_after_restore=st0["host_pages"],
+                           shard_pages=shard_pages, ensure_resident_s=spans.s["ensure_resident"],
+                           demote_s=spans.s["demote"],
+                           promote_s=spans.s["_promote_one"] - spans.s["demote"])
+            emit(res)
+            if mismatches or snap_diff or errors:
+                raise AssertionError(f"{name}: the mesh main path disagrees with the CPU engine")
+            if not (launches[name] == st["kernel_launches"] == st["waves"] > 0):
+                raise AssertionError(f"{name}: kernel launches do not match the waves")
+            if res["other_kernel_launches"]:
+                raise AssertionError(f"{name}: another configuration was launched")
+            if paged and not (res["promotes"] > 0 and res["demotes"] > 0):
+                raise AssertionError(f"{name}: no page was promoted and demoted")
+            results[(name, size.name)] = res
+            free_device()
     return results
 
 
 def run_size(rng, size: Size, card: str):
-    """Kernel checks and times for each wave and scan configuration of
-    the size, then its main path. Returns ({wave kernel name: (kernel,
-    times, main) lines}, {scan kernel name: (max err, times line)})."""
+    """Kernel checks and times for each wave, scan and sharded
+    configuration of the size, then its main path and its mesh main
+    path. Returns ({wave kernel name: (kernel, times, main) lines}, {scan
+    kernel name: (max err, times line)}, {sharded kernel name: (max err,
+    times line)}, {(sharded kernel name, size): mesh main path line})."""
     image = live_image(rng, size)
     pm = scrambled_page_map(rng, size) if size.page_groups else None
-    checked, scans = {}, {}
+    checked, scans, meshes = {}, {}, {}
     for layout, paged in size.configs:
         pmap = pm if paged else None
         kt, pt, err = phase_kernel(rng, image, size, layout, pmap)
@@ -995,8 +1160,17 @@ def run_size(rng, size: Size, card: str):
         scans[cuda_decide.config_name(layout, paged, scan=True)] = (serr, stimes)
         del tables
         free_device()
-    main = phase_main_path(rng, image, size)
-    return {k: (err, times, main[k]) for k, (err, times) in checked.items()}, scans
+        kt, pt, merr = phase_mesh_kernel(rng, image, size, layout, pmap)
+        mtimes = phase_times(rng, image, size, layout, pmap, kt, pt, card, MESH_SHARDS)
+        meshes[cuda_decide.sharded_name(layout)] = (merr, mtimes)
+        del kt, pt
+        free_device()
+    main, reference = phase_main_path(rng, image, size)
+    del image
+    mesh_main = phase_mesh_main_path(size, reference)
+    del reference
+    return ({k: (err, times, main[k]) for k, (err, times) in checked.items()}, scans,
+            meshes, mesh_main)
 
 
 def kernel_entry(name, layout, paged, err, times, main):
@@ -1033,6 +1207,25 @@ def scan_entry(name, layout, paged, err, times, launches):
     }
 
 
+def mesh_entry(name, layout, errs, times, launches):
+    """The sharded kernel's line: the largest difference over its checks
+    at both sizes, the 1M flat times, and its launches on the mesh main
+    paths (1M flat and 10M paged, each counted from 0)."""
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "gubernator_tpu_torch/csrc/decide_sharded.cu",
+        "replaces": f"gubernator_tpu/ops/pallas_decide.py:927 (raw_decide_flat, layout={layout})",
+        "launches": launches,
+        "max_abs_err": max(errs),
+        "ms": times["kernel_ms_median"],
+        "plain_ms": times["plain_ms_median"],
+        "bound_ms": times["bound_ms"],
+        "bound_by": times["bound_by"],
+        "library_ms": None,
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1050,18 +1243,27 @@ def main() -> int:
 
     phase_build()
     entries, scans = [], []
+    mesh_errs, mesh_times, mesh_launches = {}, {}, {}
     for size in SIZES:
-        done, scanned = run_size(rng, size, smi)
+        done, scanned, meshed, mesh_main = run_size(rng, size, smi)
         for layout, paged in size.configs:
             k = cuda_decide.config_name(layout, paged)
             entries.append(kernel_entry(k, layout, paged, *done[k]))
             k = cuda_decide.config_name(layout, paged, scan=True)
             scans.append(scan_entry(k, layout, paged, *scanned[k], None))
+            k = cuda_decide.sharded_name(layout)
+            mesh_errs.setdefault(k, []).append(meshed[k][0])
+            mesh_times.setdefault(k, meshed[k][1])  # the first size's: 1M flat
+            mesh_launches[k] = mesh_launches.get(k, 0) + mesh_main[(k, size.name)]["launches"]
     # the bench is the scans' main path: their launches are its counts
     launches = phase_bench(smi)
     for e in scans:
         e["launches"] = launches[e["name"]]
     entries += scans
+    entries += [mesh_entry(cuda_decide.sharded_name(lay), lay, mesh_errs[cuda_decide.sharded_name(lay)],
+                           mesh_times[cuda_decide.sharded_name(lay)],
+                           mesh_launches[cuda_decide.sharded_name(lay)])
+                for lay in ("fused", "narrow")]
     emit({"phase": "summary", "wall_s": time.perf_counter() - t0,
           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
           "nvidia_smi": smi})

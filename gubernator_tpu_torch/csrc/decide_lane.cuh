@@ -84,6 +84,21 @@ struct GuberScanArgs {
   int32_t steps;
 };
 
+// Arguments of a sharded wave (decide_sharded.cu): the table is
+// n_shards equal shards of n_local rows in one allocation, shard d at
+// rows [d * n_local, (d + 1) * n_local) (`wave.table` is shard 0's first
+// row, `wave.n_slots` the whole table). On a paged mesh (`wave.page_map`
+// given) the frames are the shards' rows. The combined `freed` is int32,
+// as the psum gives it, so it has its own pointer (`wave.out_freed` is
+// unused). Mirrored in ops/cuda_decide.py.
+struct GuberShardArgs {
+  GuberWaveArgs wave;
+  int32_t* out_freed;  // (batch,)
+  int64_t n_local;  // rows per shard
+  int32_t n_shards;
+  int32_t groups_per;  // groups per shard: n_local / ways
+};
+
 namespace guber {
 
 constexpr int FIXED_SHIFT = 20;
@@ -356,10 +371,19 @@ struct Probe {
   int64_t khi, klo, meta, exp, inv;
 };
 
+// One lane's outputs: the DecideOutput fields of lane j.
+struct LaneOut {
+  int8_t status;
+  int64_t limit, remaining, reset_time, slot, evicted_hi, evicted_lo;
+  bool freed;
+};
+
 // One lane of the wave in one static configuration: layout LAYOUT, and
-// PAGED (the group goes through the page map) or flat. Writes the lane's
-// outputs and, if it is active and resident, its new table row; ADDS its
-// scalar contributions to `scal`.
+// PAGED (the group goes through the page map) or flat, for a lane that
+// is `active` with logical group `group` (the caller reads both: from
+// the batch, or from a shard's ownership mask). Returns the lane's
+// outputs, stores its new table row if it is active and resident, and
+// ADDS its scalar contributions to `scal`.
 //
 // Paged (pallas_decide.py:418-422, :529-548): pp = page_map[g / gpp] in
 // int32; a lane whose page is not resident (pp < 0) is a SENTINEL lane.
@@ -371,21 +395,13 @@ struct Probe {
 // (a group beyond the logical table) is treated the same way rather
 // than read out of bounds.
 template <int LAYOUT, bool PAGED>
-GUBER_HD void decide_lane(const GuberWaveArgs& a, int j,
-                          int64_t scal[N_SCAL]) {
+GUBER_HD LaneOut lane_decide(const GuberWaveArgs& a, int j, bool active,
+                             int64_t group, int64_t scal[N_SCAL]) {
   using C = Cols<LAYOUT>;
-  if (!a.active[j]) {
+  if (!active) {
     // Padding lane: reads nothing, writes no row (scatter-drop by
     // omission), reports slot == n_slots.
-    a.out_status[j] = 0;
-    a.out_limit[j] = 0;
-    a.out_remaining[j] = 0;
-    a.out_reset_time[j] = 0;
-    a.out_slot[j] = a.n_slots;
-    a.out_evicted_hi[j] = 0;
-    a.out_evicted_lo[j] = 0;
-    a.out_freed[j] = 0;
-    return;
+    return LaneOut{0, 0, 0, 0, a.n_slots, 0, 0, false};
   }
   const int64_t now = a.now;
   const int64_t key_hi = a.key_hi[j];
@@ -393,9 +409,9 @@ GUBER_HD void decide_lane(const GuberWaveArgs& a, int j,
 
   // Logical -> physical group.
   bool resident = true;
-  int64_t pgroup = a.group[j];
+  int64_t pgroup = group;
   if constexpr (PAGED) {
-    const int64_t g = a.group[j];
+    const int64_t g = group;
     const int64_t lp = floor_div(g, a.gpp);
     const int32_t pp =
         (lp >= 0 && lp < a.n_log_pages) ? a.page_map[lp] : int32_t(-1);
@@ -516,14 +532,9 @@ GUBER_HD void decide_lane(const GuberWaveArgs& a, int j,
     for (int c = 0; c < C::NCOLS; ++c) srow[c] = nrow[c];
   }
 
-  a.out_status[j] = o.resp_status;
-  a.out_limit[j] = r.limit;
-  a.out_remaining[j] = o.resp_remaining;
-  a.out_reset_time[j] = o.resp_reset;
-  a.out_slot[j] = resident ? base + way : a.n_slots;
-  a.out_evicted_hi[j] = displaced ? sp.khi : 0;
-  a.out_evicted_lo[j] = displaced ? sp.klo : 0;
-  a.out_freed[j] = freed ? 1 : 0;
+  const LaneOut out{o.resp_status, r.limit, o.resp_remaining, o.resp_reset,
+                    resident ? base + way : a.n_slots,
+                    displaced ? sp.khi : 0, displaced ? sp.klo : 0, freed};
 
   // Scalars: the wave's metrics over active lanes, and the WaveScan sums
   // over the rows this wave wrote (active and resident lanes).
@@ -531,7 +542,7 @@ GUBER_HD void decide_lane(const GuberWaveArgs& a, int j,
   scal[S_MISSES] += exists ? 0 : 1;
   scal[S_EVICTS] += evicts_live ? 1 : 0;
   scal[S_OVER] += o.over ? 1 : 0;
-  if (!resident) return;
+  if (!resident) return out;
   const bool adm_active = !freed && o.limit > 0 && o.expire_at > now;
   const int64_t tokens = is_leaky ? (o.remaining >> ADMISSION_SHIFT) : o.remaining;
   scal[S_ADM_KEYS] += adm_active ? 1 : 0;
@@ -540,6 +551,88 @@ GUBER_HD void decide_lane(const GuberWaveArgs& a, int j,
   scal[S_ADM_LIMIT] = wadd(scal[S_ADM_LIMIT], adm_active ? o.limit : 0);
   scal[S_CENSUS_LIVE] += freed ? 0 : 1;
   scal[S_CENSUS_WASTE] += (!freed && o.expire_at <= now) ? 1 : 0;
+  return out;
+}
+
+// Stores a lane's outputs at j, all but `freed`, whose type the caller's
+// output decides.
+GUBER_HD void store_lane(const GuberWaveArgs& a, int j, const LaneOut& o) {
+  a.out_status[j] = o.status;
+  a.out_limit[j] = o.limit;
+  a.out_remaining[j] = o.remaining;
+  a.out_reset_time[j] = o.reset_time;
+  a.out_slot[j] = o.slot;
+  a.out_evicted_hi[j] = o.evicted_hi;
+  a.out_evicted_lo[j] = o.evicted_lo;
+}
+
+// One lane of a wave over the batch's own lane j (lane_decide on its
+// `active` and `group` columns), its outputs stored at j.
+template <int LAYOUT, bool PAGED>
+GUBER_HD void decide_lane(const GuberWaveArgs& a, int j,
+                          int64_t scal[N_SCAL]) {
+  const bool active = a.active[j] != 0;
+  const LaneOut o =
+      lane_decide<LAYOUT, PAGED>(a, j, active, active ? a.group[j] : 0, scal);
+  store_lane(a, j, o);
+  a.out_freed[j] = o.freed ? 1 : 0;
+}
+
+// Where lane j of a sharded wave goes: the ownership prologue that every
+// shard runs in parallel/mesh.py (the replicated `_xlate` on a paged
+// mesh, then `_mask_to_local`), computed once for the lane. A lane is
+// owned by shard d iff it is active and its (physical) group lies in
+// [d * groups_per, (d + 1) * groups_per); `group` is then shard-local.
+// On a paged mesh (XLATE) the logical group goes through the page map in
+// int32 first, and a lane whose page is not resident maps to the
+// sentinel n_shards * groups_per, which no shard owns: unlike a paged
+// single-table lane (lane_decide<..., true>) it is inactive everywhere.
+// A page index outside the map counts as not resident (the JAX gather
+// clamps it instead; no group the engine hashes lies outside the map).
+struct ShardLane {
+  bool owned;
+  int32_t shard;
+  int64_t group;
+};
+
+template <bool XLATE>
+GUBER_HD ShardLane shard_lane(const GuberShardArgs& s, int j) {
+  const GuberWaveArgs& a = s.wave;
+  if (!a.active[j]) return ShardLane{false, 0, 0};
+  const int64_t n_groups = (int64_t)s.n_shards * s.groups_per;
+  int64_t g = a.group[j];
+  if constexpr (XLATE) {
+    const int64_t lp = floor_div(g, a.gpp);
+    const int32_t pp =
+        (lp >= 0 && lp < a.n_log_pages) ? a.page_map[lp] : int32_t(-1);
+    // int32 arithmetic as in _xlate (wrapping, not UB)
+    g = pp >= 0 ? (int64_t)(int32_t)((uint32_t)pp * (uint32_t)a.gpp +
+                                     (uint32_t)(int32_t)floor_mod(g, a.gpp))
+                : n_groups;
+  }
+  if (g < 0 || g >= n_groups) return ShardLane{false, 0, 0};
+  const int32_t d = (int32_t)(g / s.groups_per);
+  return ShardLane{true, d, g - (int64_t)d * s.groups_per};
+}
+
+// One lane of a sharded wave: the owning shard's raw decide on its own
+// rows (lane_decide, flat, n_slots = n_local), and the psum over the
+// shard axis of what every shard answers for the lane. The D - 1 other
+// shards see the lane masked: zeros in every field but `slot`, where a
+// masked lane reports its shard's n_local. So the sum is the owner's
+// answer with slot + (D - 1) * n_local, and D * n_local for a lane no
+// shard owns; `freed` is stored as int32.
+template <int LAYOUT, bool XLATE>
+GUBER_HD void decide_lane_sharded(const GuberShardArgs& s, int j,
+                                  int64_t scal[N_SCAL]) {
+  const ShardLane L = shard_lane<XLATE>(s, j);
+  GuberWaveArgs w = s.wave;
+  w.table += (int64_t)L.shard * s.n_local * Cols<LAYOUT>::NCOLS;
+  w.n_slots = s.n_local;
+  LaneOut o = lane_decide<LAYOUT, false>(w, j, L.owned, L.group, scal);
+  o.slot = wadd(o.slot, wmul((int64_t)s.n_shards - 1, s.n_local));
+  store_lane(w, j, o);
+  s.out_freed[j] = o.freed ? 1 : 0;
 }
 
 // The wave of step t of a scan: every batch and output pointer moved to

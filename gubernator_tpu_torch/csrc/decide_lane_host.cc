@@ -4,7 +4,9 @@
 // CUDA compiler or card is there. Lanes of a wave touch distinct groups,
 // so running them in sequence gives what the parallel kernel gives; the
 // scan runs its steps in order, as the grid barrier orders them in
-// decide_scan.cu. No serving path calls it.
+// decide_scan.cu; a sharded wave runs the ownership prologue and the
+// psum epilogue of decide_sharded.cu for each lane. No serving path
+// calls it.
 
 #include "decide_lane.cuh"
 
@@ -46,5 +48,21 @@ extern "C" int guber_decide_scan_host(const GuberScanArgs* args, int layout,
     const GuberWaveArgs w = guber::step_args(*args, t);
     if (!wave(&w, layout, paged)) return 1;
   }
+  return 0;
+}
+
+// One sharded wave of configuration (layout, xlate), as
+// guber_decide_sharded in decide_sharded.cu takes it. Returns 0, or 1
+// for an unknown configuration.
+extern "C" int guber_decide_sharded_host(const GuberShardArgs* args,
+                                         int layout, int xlate) {
+  int64_t s[guber::N_SCAL] = {0};
+  const bool known = guber::dispatch(layout, xlate, [&](auto L, auto X) {
+    for (int j = 0; j < args->wave.batch; ++j)
+      guber::decide_lane_sharded<decltype(L)::value, decltype(X)::value>(
+          *args, j, s);
+  });
+  if (!known) return 1;
+  for (int k = 0; k < guber::N_SCAL; ++k) args->wave.scalars[k] = s[k];
   return 0;
 }

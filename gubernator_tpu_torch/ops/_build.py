@@ -1,11 +1,13 @@
 """Build the port's native code at first use and load it with ctypes.
 
 Each library has a plain C interface: CUDA sources are compiled by
-`nvcc` for `sm_90a` (Hopper), host C++ by `g++`, into
+`nvcc` for `sm_90a` (Hopper), one object per source, and linked into one
+library; host C++ is built by `g++`; all into
 `gubernator_tpu_torch/_build/` (listed in `.gitignore`). A library is
 rebuilt when it is missing or older than any of its sources, so a fresh
 checkout builds everything on its first run. `build()` starts every
-stale compile at once and waits for all of them.
+stale compile at once (every CUDA source its own `nvcc`), waits for all
+of them, then links.
 
 A failed build raises with the compiler's output; nothing here falls
 back to another implementation.
@@ -19,7 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional, Tuple
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = PKG_DIR / "csrc"
@@ -30,9 +32,13 @@ CUDA_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # library name -> (compiler, sources, headers they include)
 TARGETS = {
     # the decide kernels: one wave (replaces ops/pallas_decide.py::
-    # _make_kernel) and T waves in one cooperative launch (replaces
-    # decide_scan_flat / decide_scan_paged)
-    "decide_cuda": ("nvcc", ("decide_wave.cu", "decide_scan.cu"), ("decide_lane.cuh",)),
+    # _make_kernel), T waves in one cooperative launch (replaces
+    # decide_scan_flat / decide_scan_paged) and the owner-sharded wave
+    # (replaces raw_decide_flat inside the mesh tier's shard_map)
+    "decide_cuda": (
+        "nvcc", ("decide_wave.cu", "decide_scan.cu", "decide_sharded.cu"),
+        ("decide_lane.cuh",),
+    ),
     # the same per-lane code compiled for the CPU; tests only
     "decide_lane_host": ("g++", ("decide_lane_host.cc",), ("decide_lane.cuh",)),
     # MurmurHash3 x64-128 key hasher (host)
@@ -66,19 +72,26 @@ def _nvcc() -> str:
     )
 
 
-def _command(name: str, out: str) -> List[str]:
+def _jobs(name: str, out: str) -> Tuple[List[Tuple[str, List[str]]], Optional[List[str]]]:
+    """The compile commands of library `name` (each with the file it
+    writes) and the command that links their objects into `out`, or None
+    when the one compile writes `out` itself (g++)."""
     compiler, srcs, _ = TARGETS[name]
-    src_paths = [str(CSRC / s) for s in srcs]
     if compiler == "nvcc":
-        return [
-            _nvcc(), *CUDA_ARCH, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-I", str(CSRC), "-o", out, *src_paths,
-        ]
-    return [
+        compiles = []
+        for src in srcs:
+            obj = f"{out}.{Path(src).stem}.o"
+            compiles.append((obj, [
+                _nvcc(), *CUDA_ARCH, "-std=c++17", "-O3", "-c",
+                "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                "-I", str(CSRC), "-o", obj, str(CSRC / src),
+            ]))
+        link = [_nvcc(), *CUDA_ARCH, "-shared", "-o", out, *(o for o, _ in compiles)]
+        return compiles, link
+    return [(out, [
         "g++", "-std=c++17", "-O3", "-shared", "-fPIC",
-        "-I", str(CSRC), "-o", out, *src_paths,
-    ]
+        "-I", str(CSRC), "-o", out, *(str(CSRC / s) for s in srcs),
+    ])], None
 
 
 def _stale(name: str) -> bool:
@@ -90,29 +103,43 @@ def _stale(name: str) -> bool:
     return so.stat().st_mtime < newest
 
 
+def _run(cmd: List[str]) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
 def build(names: Iterable[str], force: bool = False) -> None:
     """Compile the named libraries that are stale (all of them with
-    `force`), every compiler started at once. Each writes a private
-    temporary file that is renamed into place, so concurrent processes
-    building the same library never load a half-written file."""
+    `force`), every compiler started at once, then link. Each writes
+    private temporary files, the library renamed into place, so
+    concurrent processes building the same library never load a
+    half-written file."""
     names = [n for n in names if force or _stale(n)]
     if not names:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
+    started = []
     for n in names:
         tmp = str(lib_path(n)) + f".{os.getpid()}.{threading.get_ident()}.tmp"
-        p = subprocess.Popen(
-            _command(n, tmp),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        procs.append((n, tmp, p))
+        compiles, link = _jobs(n, tmp)
+        started.append((n, tmp, [(f, _run(cmd)) for f, cmd in compiles], link))
     failed = []
-    for n, tmp, p in procs:
-        out, _ = p.communicate()
-        log_path(n).write_text(out)
-        if p.returncode != 0:
-            failed.append(f"{n} (exit {p.returncode}):\n{out}")
+    for n, tmp, procs, link in started:
+        logs, ok = [], True
+        for _, p in procs:
+            out, _ = p.communicate()
+            logs.append(out)
+            ok = ok and p.returncode == 0
+        if ok and link is not None:
+            p = _run(link)
+            out, _ = p.communicate()
+            logs.append(out)
+            ok = p.returncode == 0
+        log_path(n).write_text("".join(logs))
+        for f, _ in procs:
+            if f != tmp and os.path.exists(f):
+                os.unlink(f)
+        if not ok:
+            failed.append(f"{n}:\n{''.join(logs)}")
             if os.path.exists(tmp):
                 os.unlink(tmp)
             continue

@@ -1,19 +1,22 @@
 """The decide wave on Hopper: wrappers of the CUDA kernels in
-`csrc/decide_wave.cu` (one wave) and `csrc/decide_scan.cu` (T waves in
-one cooperative launch), built into one library.
+`csrc/decide_wave.cu` (one wave), `csrc/decide_scan.cu` (T waves in
+one cooperative launch) and `csrc/decide_sharded.cu` (one wave over an
+owner-sharded table), built into one library.
 
 Counterpart of `gubernator_tpu/ops/pallas_decide.py` (`decide_flat`,
-`decide_flat_with_scan`, `decide_paged`, `decide_paged_with_scan`, and
-the scans `decide_scan_flat`, `decide_scan_paged`) for the fused and
-narrow layouts, on a flat table or a paged one. The kernels replace that
-module's `_make_kernel` (one wave, or a `lax.scan` of waves) in these
-four static configurations each; see the sources for their design and
-bound.
+`decide_flat_with_scan`, `decide_paged`, `decide_paged_with_scan`, the
+scans `decide_scan_flat`, `decide_scan_paged`, and `raw_decide_flat` as
+`parallel/mesh.py` composes it inside `shard_map`) for the fused and
+narrow layouts. The wave and scan kernels replace that module's
+`_make_kernel` (one wave, or a `lax.scan` of waves) on a flat table or
+a paged one; the sharded kernel replaces the mesh tier's per-shard
+`raw_decide_flat` and the psum over the shards, on a flat mesh table or
+a paged mesh's frames. See the sources for their design and bound.
 
 Dispatch is by the table's device and nothing else:
 
 - a CPU table runs the plain PyTorch version of the same configuration
-  (`ops/fused.py::wave_plain`, `scan_plain`);
+  (`ops/fused.py::wave_plain`, `scan_plain`, `sharded_plain`);
 - a CUDA table launches the kernel or raises. A failed build or launch
   is never caught here, and the plain version never runs on the card.
 
@@ -57,10 +60,16 @@ def config_name(layout: str, paged: bool, scan: bool = False) -> str:
     ) + ("_paged" if paged else "")
 
 
+def sharded_name(layout: str) -> str:
+    """Name of the sharded wave kernel of `layout`: "decide_wave_sharded"
+    (fused) or "decide_wave_sharded_narrow", flat or paged mesh alike."""
+    return "decide_wave_sharded" + ("_narrow" if layout == "narrow" else "")
+
+
 CONFIGS = tuple(
     config_name(lay, p, sc) for sc in (False, True) for p in (False, True)
     for lay in _LAYOUT_CODE
-)
+) + tuple(sharded_name(lay) for lay in _LAYOUT_CODE)
 
 # Kernel launches made by this module since import (or the last reset),
 # by configuration.
@@ -118,6 +127,15 @@ class _ScanArgs(ctypes.Structure):
     """Mirror of `GuberScanArgs` in csrc/decide_lane.cuh."""
 
     _fields_ = [("wave", _WaveArgs), ("nows", _P), ("steps", ctypes.c_int32)]
+
+
+class _ShardArgs(ctypes.Structure):
+    """Mirror of `GuberShardArgs` in csrc/decide_lane.cuh."""
+
+    _fields_ = [
+        ("wave", _WaveArgs), ("out_freed", _P), ("n_local", ctypes.c_int64),
+        ("n_shards", ctypes.c_int32), ("groups_per", ctypes.c_int32),
+    ]
 
 
 def _check_table(data, ways: int, layout: str, page_map: Optional[torch.Tensor],
@@ -183,14 +201,15 @@ def _check_scan(data, batches: RequestBatch, nows, ways: int, layout: str,
     return steps, b, nows.to(data.device).contiguous()
 
 
-def _outputs(shape, dev) -> Tuple[DecideOutput, WaveScan, list]:
+def _outputs(shape, dev, freed_dtype=torch.bool) -> Tuple[DecideOutput, WaveScan, list]:
     """Kernel outputs for lanes of `shape`, (B,) or (T, B): the lane
     fields, and the 9 sums as (9,) or (T, 9) with the DecideOutput and
-    WaveScan sums viewed out of it; plus the pointers in kernel order."""
+    WaveScan sums viewed out of it; plus the pointers in kernel order.
+    `freed` is bool, or int32 for a sharded wave (the psum's type)."""
     i64 = dict(dtype=torch.int64, device=dev)
     limit, remaining, reset_time, slot, ehi, elo = (torch.empty(shape, **i64) for _ in range(6))
     status = torch.empty(shape, dtype=torch.int8, device=dev)
-    freed = torch.empty(shape, dtype=torch.bool, device=dev)
+    freed = torch.empty(shape, dtype=freed_dtype, device=dev)
     scal = torch.empty(tuple(shape[:-1]) + (N_SCAL,), **i64)
     out = DecideOutput(
         status=status, limit=limit, remaining=remaining, reset_time=reset_time,
@@ -207,7 +226,7 @@ def _wave_args(data, batch, now, ways, b, ptrs, page_map, gpp) -> _WaveArgs:
     cols = [getattr(batch, f).data_ptr() for f in _BATCH_DTYPES]
     paged = page_map is not None
     return _WaveArgs(
-        data.data_ptr(), *cols, *(t.data_ptr() for t in ptrs),
+        data.data_ptr(), *cols, *(t.data_ptr() if t is not None else None for t in ptrs),
         page_map.data_ptr() if paged else None,
         data.shape[0], int(now), ways, b,
         gpp if paged else 0, page_map.shape[0] if paged else 0,
@@ -215,8 +234,8 @@ def _wave_args(data, batch, now, ways, b, ptrs, page_map, gpp) -> _WaveArgs:
 
 
 def _decide_lib() -> ctypes.CDLL:
-    """The library of both kernels (csrc/decide_wave.cu and
-    csrc/decide_scan.cu), built first if needed."""
+    """The library of the kernels (csrc/decide_wave.cu, decide_scan.cu
+    and decide_sharded.cu), built first if needed."""
     lib = _build.load("decide_cuda")
     if lib.guber_decide_wave.argtypes is None:
         lib.guber_decide_wave.argtypes = [
@@ -227,6 +246,10 @@ def _decide_lib() -> ctypes.CDLL:
             ctypes.POINTER(_ScanArgs), ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.guber_decide_scan.restype = ctypes.c_int
+        lib.guber_decide_sharded.argtypes = [
+            ctypes.POINTER(_ShardArgs), ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.guber_decide_sharded.restype = ctypes.c_int
         lib.guber_cuda_error_string.argtypes = [ctypes.c_int]
         lib.guber_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -432,3 +455,89 @@ def decide_scan_lane_code_on_host(
     if fn(ctypes.byref(args), _LAYOUT_CODE[layout], int(page_map is not None)) != 0:
         raise RuntimeError("decide_lane_host scan failed")
     return table, out
+
+
+def _check_shards(data, n_shards: int, ways: int) -> int:
+    """Validate the shard geometry of a sharded wave's table; returns the
+    groups per shard."""
+    if n_shards < 1 or data.shape[0] % (n_shards * ways):
+        raise ValueError(
+            f"table rows {data.shape[0]} do not split into {n_shards} shards of whole groups"
+        )
+    gp = data.shape[0] // ways // n_shards
+    if gp * n_shards >= 1 << 31:
+        raise ValueError(f"{gp * n_shards} groups: the group column is int32")
+    return gp
+
+
+def _shard_args(data, batch, now, ways, b, ptrs, page_map, gpp, n_shards, gp) -> _ShardArgs:
+    """The sharded wave's arguments: the wave's, whose bool `freed`
+    pointer is left null, and the int32 `freed` and the shard geometry."""
+    wave = _wave_args(data, batch, now, ways, b, ptrs[:7] + [None, ptrs[8]], page_map, gpp)
+    return _ShardArgs(wave, ptrs[7].data_ptr(), gp * ways, n_shards, gp)
+
+
+def decide_sharded(
+    data, page_map, batch: RequestBatch, now: int, *, layout: str, ways: int,
+    n_shards: int, gpp: int = 0,
+) -> Tuple[DecideOutput, WaveScan]:
+    """One owner-sharded wave over the (N, C) rows `data`, split into
+    `n_shards` equal shards of contiguous groups, updated in place: what
+    `parallel/mesh.py` computes with `shard_map` over `raw_decide_flat`
+    and a psum (the owner's answer; `slot` and `freed` as the psum
+    gives them, `freed` int32). With `page_map` the rows are a paged
+    mesh's frames and each lane's group goes through the map first
+    (`_xlate`); a lane on a page that is not resident is owned by no
+    shard. CPU rows: the plain version (`fused.sharded_plain`). CUDA
+    rows: the sharded kernel, ONE launch for all the shards, on PyTorch's
+    current stream, without synchronising."""
+    dev = data.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"decide runs on cuda or cpu, not {dev}")
+    b = _check(data, batch, ways, layout, page_map, gpp)
+    gp = _check_shards(data, n_shards, ways)
+    if dev.type == "cpu":
+        return fused.sharded_plain(
+            _CODECS[layout], data, page_map, batch, now, ways=ways,
+            n_shards=n_shards, gpp=gpp,
+        )
+    lib = _decide_lib()
+    out, scan, ptrs = _outputs((b,), dev, torch.int32)
+    if b == 0:
+        ptrs[-1].zero_()
+        return out, scan
+    args = _shard_args(data, batch, now, ways, b, ptrs, page_map, gpp, n_shards, gp)
+    name = sharded_name(layout)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.guber_decide_sharded(
+            ctypes.byref(args), _LAYOUT_CODE[layout], int(page_map is not None), stream
+        )
+    if rc != 0:
+        msg = lib.guber_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+    _count(name)
+    return out, scan
+
+
+def decide_sharded_lane_code_on_host(
+    data, page_map, batch: RequestBatch, now: int, *, layout: str, ways: int,
+    n_shards: int, gpp: int = 0,
+) -> Tuple[DecideOutput, WaveScan]:
+    """Tests only: the sharded kernel's ownership prologue, per-lane C++
+    and psum epilogue (`decide_lane_sharded`, csrc/decide_lane.cuh) built
+    by g++ and run lane after lane on CPU tensors. Same arguments as
+    `decide_sharded`. No serving path calls this."""
+    if data.device.type != "cpu":
+        raise ValueError("decide_sharded_lane_code_on_host takes CPU tensors")
+    b = _check(data, batch, ways, layout, page_map, gpp)
+    gp = _check_shards(data, n_shards, ways)
+    lib = _build.load("decide_lane_host")
+    fn = lib.guber_decide_sharded_host
+    fn.argtypes = [ctypes.POINTER(_ShardArgs), ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    out, scan, ptrs = _outputs((b,), data.device, torch.int32)
+    args = _shard_args(data, batch, now, ways, b, ptrs, page_map, gpp, n_shards, gp)
+    if fn(ctypes.byref(args), _LAYOUT_CODE[layout], int(page_map is not None)) != 0:
+        raise RuntimeError("decide_lane_host sharded wave failed")
+    return out, scan

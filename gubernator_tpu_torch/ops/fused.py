@@ -15,8 +15,10 @@ the five WaveScan sums. On a flat table it equals the layout's XLA
 program (`_decide_fused_impl`, `_decide_narrow_impl`). It is the
 reference the CUDA kernel (`ops/cuda_decide.py`) is held against and
 the path a CPU table takes. `scan_plain` runs T such waves in order: the
-plain version of the scan kernel. `decide_fused_plain` is the wave's
-fused, flat form. Where JAX donates the table buffer, this version updates the
+plain version of the scan kernel. `sharded_plain` is the owner-sharded
+wave of the mesh tier: the masked wave on every shard's rows, then the
+sum over the shards (the plain version of the sharded kernel).
+`decide_fused_plain` is the wave's fused, flat form. Where JAX donates the table buffer, this version updates the
 table IN PLACE.
 """
 
@@ -376,6 +378,83 @@ def scan_plain(
             for i, f in enumerate(DecideOutput._fields)
         })
     return DecideOutput(*(torch.stack(f) for f in zip(*outs)))
+
+
+def mask_to_local(shard: int, groups_per: int, batch: RequestBatch) -> RequestBatch:
+    """Shard `shard`'s view of a replicated batch (`parallel/mesh.py`
+    `_mask_to_local`): lanes whose group lies outside its contiguous
+    range [shard * groups_per, (shard + 1) * groups_per) go inactive,
+    the rest are rebased to shard-local groups (in int64, then cast back
+    to the batch's group type); masked lanes get group 0."""
+    local = batch.group.to(I64) - shard * groups_per
+    mine = (local >= 0) & (local < groups_per) & batch.active
+    return batch._replace(
+        group=torch.where(mine, local, 0).to(batch.group.dtype), active=mine
+    )
+
+
+def xlate_groups(page_map: torch.Tensor, group: torch.Tensor, gpp: int,
+                 sentinel: int) -> torch.Tensor:
+    """A paged mesh's logical -> physical group translation (`parallel/
+    mesh.py` `_xlate`), in int32: page_map[g // gpp] * gpp + g % gpp, or
+    `sentinel` (the physical group count, which no shard owns) where the
+    page is not resident. A page index outside the map counts as not
+    resident (the JAX gather clamps it; no hashed group lies there)."""
+    g = group.to(torch.int32)
+    lp = torch.div(g, gpp, rounding_mode="floor")
+    in_map = (lp >= 0) & (lp < page_map.shape[0])
+    pp = torch.where(in_map, page_map[torch.clamp(lp, 0, page_map.shape[0] - 1).long()], -1)
+    phys = torch.where(pp >= 0, pp * gpp + g % gpp, sentinel)
+    return phys.to(group.dtype)
+
+
+# dtype of each DecideOutput field after the psum over the shard axis
+# (sums of int8 stay int8; the bool `freed` sums as int32)
+_PSUM_DTYPES = {"status": torch.int8, "freed": torch.int32}
+
+
+def sharded_plain(
+    codec: RowCodec,
+    data: torch.Tensor,
+    page_map: Optional[torch.Tensor],
+    batch: RequestBatch,
+    now: int,
+    *,
+    ways: int,
+    n_shards: int,
+    gpp: int = 0,
+) -> Tuple[DecideOutput, WaveScan]:
+    """The owner-sharded wave of the mesh tier in plain torch ops, on one
+    device: `data` is `n_shards` equal shards of contiguous rows, shard d
+    at rows [d * n_local, (d + 1) * n_local), updated in place. Each
+    shard runs `wave_plain` (flat) on its own rows with the batch masked
+    to the lanes it owns (`mask_to_local`), and every output is summed
+    over the shards, as `parallel/mesh.py` psums them: a lane's answer
+    is its owner's, its `slot` the owner's local slot plus (D - 1) *
+    n_local (a masked lane reports its shard's n_local), D * n_local for
+    a lane no shard owns, and `freed` int32. With `page_map` the rows are
+    a paged mesh's frames and the groups are translated first
+    (`xlate_groups`). The WaveScan sums add up over the shards."""
+    n = data.shape[0]
+    n_local = n // n_shards
+    groups_per = n_local // ways
+    if page_map is not None:
+        batch = batch._replace(
+            group=xlate_groups(page_map, batch.group, gpp, n_shards * groups_per)
+        )
+    outs, scans = [], []
+    for d in range(n_shards):
+        out, scan = wave_plain(
+            codec, data[d * n_local:(d + 1) * n_local], None,
+            mask_to_local(d, groups_per, batch), now, ways=ways,
+        )
+        outs.append(out)
+        scans.append(scan)
+    out = DecideOutput(**{
+        f: torch.stack([getattr(o, f) for o in outs]).sum(0, dtype=_PSUM_DTYPES.get(f, I64))
+        for f in DecideOutput._fields
+    })
+    return out, WaveScan(*(torch.stack(f).sum(0) for f in zip(*scans)))
 
 
 def decide_fused_plain(

@@ -1,9 +1,11 @@
 """Device engine: micro-batch assembly over the device-resident table.
 
-The port of `gubernator_tpu/runtime/engine.py` (`DeviceEngine`, the
-single-device `MeshEngine`) for the object path with a serial pump.
-Requests accumulate into waves; one decide call per wave updates the
-table in place on the device (the CUDA kernel on a CUDA table).
+The port of `gubernator_tpu/runtime/engine.py` (`MeshEngine`, and
+`DeviceEngine`, the engine at mesh shape (1,)) for the object path with
+a serial pump. Requests accumulate into waves; one decide call per wave
+updates the table in place on the device (a CUDA kernel on a CUDA
+table). The topology (runtime/topology.py) binds the kernels: one
+table's, or the owner-sharded mesh's (runtime/ici_engine.py IciEngine).
 
 Micro-batching (reference peer_client.go:284-337; config.go:126-128):
 flush at `batch_limit` items or after `batch_wait_s`, whichever comes
@@ -55,7 +57,7 @@ from gubernator_tpu_torch.api.types import (
 )
 from gubernator_tpu_torch.ops import cuda_decide
 from gubernator_tpu_torch.ops.encode import EncodeError, encode_one, encode_rows
-from gubernator_tpu_torch.ops.kernels import LAYOUTS, get_kernels, get_paged_kernels
+from gubernator_tpu_torch.ops.kernels import LAYOUTS
 from gubernator_tpu_torch.ops.layout import (
     SLOT_DTYPES,
     RequestBatch,
@@ -63,7 +65,8 @@ from gubernator_tpu_torch.ops.layout import (
     batch_prefix,
     batch_to_device,
 )
-from gubernator_tpu_torch.runtime.pager import Pager, wide_zeros
+from gubernator_tpu_torch.runtime.pager import wide_zeros
+from gubernator_tpu_torch.runtime.topology import SingleChipTopology
 from gubernator_tpu_torch.utils import clock as _clock
 
 
@@ -182,15 +185,25 @@ _FLUSH = object()
 _STOP = object()
 
 
-class DeviceEngine:
-    """Owns the slot table on one device; turns request streams into
-    decisions. Counts its flushes, waves and kernel launches (`stats()`):
-    on a CUDA table every wave is one kernel launch."""
+class MeshEngine:
+    """Owns the slot table; turns request streams into decisions. One
+    engine core, parameterised by mesh shape (runtime/topology.py): the
+    topology binds the kernels (one table's at shape (1,), the
+    owner-sharded wave at (D,)), decides whether a Pager manages page
+    residency behind them, and names the device. Counts its flushes,
+    waves and kernel launches (`stats()`): on a CUDA table every wave is
+    one kernel launch, whatever the number of shards."""
+
+    # Whether GLOBAL requests belong to a tier inside the engine (the
+    # replica tier of IciEngine) rather than to the table every request
+    # reaches.
+    routes_global_internally = False
 
     def __init__(
         self,
         config: Optional[EngineConfig] = None,
         now_fn: Callable[[], int] = _clock.now_ms,
+        topology=None,
     ):
         cfg = config if config is not None else EngineConfig()
         if cfg.max_waves < 1:
@@ -199,39 +212,28 @@ class DeviceEngine:
             raise ValueError("batch_size, num_groups and ways must be >= 1")
         if cfg.layout not in LAYOUTS:
             raise ValueError(f"layout {cfg.layout!r}: this package serves {LAYOUTS}")
-        self.device = torch.device(cfg.device)
+        self.topo = topology if topology is not None else SingleChipTopology(cfg.device)
+        self.device = self.topo.device
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(
-                    "EngineConfig.device is 'cuda' but no CUDA device is "
+                    "the engine's device is cuda but no CUDA device is "
                     "available; pass device='cpu' to run on the CPU"
                 )
         elif self.device.type != "cpu":
             raise ValueError(f"device must be cuda or cpu, not {self.device}")
+        if cfg.page_groups > 0 and cfg.page_demote_interval_s > 0:
+            raise NotImplementedError(
+                "page_demote_interval_s > 0: the background demoter comes "
+                "with the table-census slice; pass 0 (pages demote on demand)"
+            )
         self.cfg = cfg
         self.now_fn = now_fn
-        self._pager: Optional[Pager] = None
-        if cfg.page_groups > 0:
-            if cfg.page_budget <= 0:
-                raise ValueError("page_budget must be > 0 when page_groups > 0")
-            if cfg.page_groups > cfg.num_groups:
-                raise ValueError(
-                    f"page_groups ({cfg.page_groups}) exceeds num_groups ({cfg.num_groups})"
-                )
-            if cfg.page_demote_interval_s > 0:
-                raise NotImplementedError(
-                    "page_demote_interval_s > 0: the background demoter comes "
-                    "with the table-census slice; pass 0 (pages demote on demand)"
-                )
-            self.K = get_paged_kernels(
-                cfg.layout, cfg.num_groups, cfg.ways, cfg.page_groups,
-                cfg.page_budget, self.device,
-            )
-            self._pager = Pager(self.K)
-        else:
-            self.K = get_kernels(cfg.layout)
+        self.K, self._pager = self.topo.build_kernels(cfg)
         self.K.load(self.device)
         self.table = self.K.create(cfg.num_groups, cfg.ways, self.device)
+        # the GLOBAL replica tier: None on every topology until it is ported
+        self._rtier = self.topo.build_replica(cfg)
 
         self._lock = threading.Lock()  # the table
         self._keys_lock = threading.Lock()  # the host key dictionary
@@ -247,7 +249,7 @@ class DeviceEngine:
         self._bulks: List[_Bulk] = []
         self._bulks_lock = threading.Lock()
         self._thread = threading.Thread(
-            target=self._pump, name="gubernator-torch-pump", daemon=True
+            target=self._pump, name=self.topo.thread_name, daemon=True
         )
         self._thread.start()
 
@@ -520,7 +522,7 @@ class DeviceEngine:
         TableCommittedError so no caller retries the batch."""
         outs = []
         launches = 0
-        with self._lock:
+        with self._lock, self.topo.dispatch_guard():
             try:
                 for wb in waves:
                     if self._pager is not None:
@@ -660,3 +662,9 @@ class DeviceEngine:
                     pager.page_map[lp] = pp
                 else:
                     pager.host_tier[lp] = page
+
+
+class DeviceEngine(MeshEngine):
+    """MeshEngine at mesh shape (1,): the single-device engine that
+    V1Service and the tests construct, its table on `EngineConfig.device`
+    (the default topology). Every behaviour lives in the core."""

@@ -1,6 +1,7 @@
 """Host-side page-residency manager for the paged slot table.
 
-The port of `gubernator_tpu/runtime/pager.py` for one device. The device
+The port of `gubernator_tpu/runtime/pager.py`, for one table or a
+mesh-sharded one (`n_shards`). The device
 half of paging is `ops/paged.py` (the page map and positional page
 moves); this module owns the HOST half: which logical page sits in which
 physical frame (a numpy mirror of the device map), the free-frame list,
@@ -54,10 +55,33 @@ class Pager:
       free:      physical frames not bound to any logical page
       touch:     per-logical-page monotonic touch tick (LRU victims)
       host_tier: lp -> {field: np.ndarray(page_slots,)} wide rows
-    """
 
-    def __init__(self, kernels):
+    n_shards > 1 runs the same bookkeeping over a mesh-sharded physical
+    table (`parallel/mesh.py::make_mesh_kernels`): the frames split into
+    n_shards contiguous per-shard pools, a logical page only ever binds
+    a frame of its own shard's pool, and victims come from that shard's
+    residents, so one shard's pressure never evicts another shard's
+    pages. The host tier is keyed by logical page either way."""
+
+    def __init__(self, kernels, *, n_shards: int = 1):
         self.PK = kernels
+        if n_shards <= 0:
+            raise ValueError(f"n_shards must be >= 1: {n_shards}")
+        if n_shards > 1:
+            if kernels.num_phys_pages % n_shards:
+                raise ValueError(
+                    f"page budget {kernels.num_phys_pages} must divide by "
+                    f"mesh size {n_shards} (equal per-shard frame pools)"
+                )
+            if kernels.num_logical_pages % n_shards:
+                raise ValueError(
+                    f"logical page count {kernels.num_logical_pages} must "
+                    f"divide by mesh size {n_shards} (pages must not "
+                    "straddle shard boundaries)"
+                )
+        self.n_shards = n_shards
+        self.frames_per_shard = kernels.num_phys_pages // n_shards
+        self.pages_per_shard = -(-kernels.num_logical_pages // n_shards)
         self.page_map = np.full(kernels.num_logical_pages, -1, dtype=np.int32)
         self.free: List[int] = list(range(kernels.num_phys_pages))
         self.touch = np.zeros(kernels.num_logical_pages, dtype=np.int64)
@@ -66,6 +90,16 @@ class Pager:
         self.demotes = 0
         self.promotes = 0
         self.binds = 0
+
+    # ---- shard geometry ----------------------------------------------------
+
+    def shard_of_page(self, lp: int) -> int:
+        """Owner shard of a logical page (0 on one table)."""
+        return int(lp) // self.pages_per_shard
+
+    def shard_of_frame(self, pp: int) -> int:
+        """Owner shard of a physical frame (0 on one table)."""
+        return int(pp) // self.frames_per_shard
 
     # ---- residency queries -------------------------------------------------
 
@@ -128,20 +162,30 @@ class Pager:
         return table
 
     def acquire_frame(self, lp: int) -> Optional[int]:
-        """Pop a free frame for logical page `lp`; None when none is
-        free. Every bind site (promote and the engine's paged restore)
-        goes through here."""
-        return self.free.pop() if self.free else None
+        """Pop a free frame eligible to hold logical page `lp`: any frame
+        on one table, the page's own shard pool on a mesh (the last such
+        entry of `free`). None when the (per-shard) pool is dry. Every
+        bind site (promote and the engine's paged restore) goes through
+        here, so shard placement is never bypassed."""
+        if self.n_shards == 1:
+            return self.free.pop() if self.free else None
+        shard = self.shard_of_page(lp)
+        for i in range(len(self.free) - 1, -1, -1):
+            if self.shard_of_frame(self.free[i]) == shard:
+                return self.free.pop(i)
+        return None
 
     def _promote_one(self, table, lp: int, protect: Set[int]):
         pp = self.acquire_frame(lp)
         if pp is None:
-            victim = self._coldest_resident(protect)
+            victim = self._coldest_resident(protect, shard=self.shard_of_page(lp))
             if victim is None:
+                budget = self.frames_per_shard if self.n_shards > 1 else self.PK.num_phys_pages
                 raise PageBudgetError(
-                    f"page budget {self.PK.num_phys_pages} cannot hold "
-                    f"{len(protect)} distinct pages touched by one wave; "
-                    "raise GUBER_TABLE_PAGE_BUDGET"
+                    f"page budget {budget}"
+                    + (f" (per shard, x{self.n_shards})" if self.n_shards > 1 else "")
+                    + f" cannot hold {len(protect)} distinct pages touched "
+                    "by one wave; raise GUBER_TABLE_PAGE_BUDGET"
                 )
             table = self.demote(table, victim)
             pp = self.acquire_frame(lp)
@@ -172,9 +216,14 @@ class Pager:
         self.demotes += 1
         return table
 
-    def _coldest_resident(self, protect: Set[int]) -> Optional[int]:
+    def _coldest_resident(self, protect: Set[int], shard: Optional[int] = None) -> Optional[int]:
+        """The least recently touched resident page outside `protect`
+        (ties to the lowest logical page), of `shard` only when given."""
         resident = np.nonzero(self.page_map >= 0)[0]
-        candidates = [lp for lp in resident.tolist() if lp not in protect]
+        candidates = [
+            lp for lp in resident.tolist()
+            if lp not in protect and (shard is None or self.shard_of_page(lp) == shard)
+        ]
         if not candidates:
             return None
         return min(candidates, key=lambda lp: int(self.touch[lp]))
@@ -190,7 +239,8 @@ class Pager:
     # ---- observability -----------------------------------------------------
 
     def pages_snapshot(self) -> dict:
-        """Residency summary, the JAX pager's single-device form."""
+        """Residency summary, in the JAX pager's form (with the per-shard
+        breakdown on a mesh)."""
         nlp = self.PK.num_logical_pages
         snap = {
             "enabled": True,
@@ -206,6 +256,20 @@ class Pager:
             "promotes": self.promotes,
             "binds": self.binds,
         }
+        if self.n_shards > 1:
+            # each shard pages on its own, so a healthy aggregate can hide
+            # one starved pool
+            per = self.pages_per_shard
+            snap["n_shards"] = self.n_shards
+            snap["frames_per_shard"] = self.frames_per_shard
+            snap["shards"] = [
+                {
+                    "resident": int((self.page_map[s * per:(s + 1) * per] >= 0).sum()),
+                    "free": sum(1 for pp in self.free if self.shard_of_frame(pp) == s),
+                    "host": sum(1 for lp in self.host_tier if self.shard_of_page(lp) == s),
+                }
+                for s in range(self.n_shards)
+            ]
         if nlp <= 4096:  # bounded debug payload
             snap["page_map"] = self.page_map.tolist()
         return snap

@@ -3,9 +3,11 @@
 The port of `gubernator_tpu/service/server.py` (`V1Service`, the
 reference's V1Instance, gubernator.go:45-773) for a standalone node:
 every key is owned locally, so a call's valid items go to the engine as
-ONE bulk submission. Peers, GLOBAL replication, leases and the decision
-recorder come in later slices; the network listeners too, so callers
-use this class in process.
+ONE bulk submission. The engine is either a `DeviceEngine` (one table)
+or an `IciEngine` (the owner-sharded mesh, runtime/ici_engine.py), which
+refuses GLOBAL requests until the replica tier is ported. Peers, GLOBAL
+replication, leases and the decision recorder come in later slices; the
+network listeners too, so callers use this class in process.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from gubernator_tpu_torch.api.types import (
     RateLimitResp,
     validate_request,
 )
-from gubernator_tpu_torch.runtime.engine import DeviceEngine
+from gubernator_tpu_torch.runtime.engine import MeshEngine
 from gubernator_tpu_torch.utils import clock as _clock
 
 
@@ -34,7 +36,7 @@ class ApiError(Exception):
 
 
 class V1Service:
-    def __init__(self, engine: DeviceEngine, now_fn=_clock.now_ms):
+    def __init__(self, engine: MeshEngine, now_fn=_clock.now_ms):
         self.engine = engine
         self.now_fn = now_fn
 

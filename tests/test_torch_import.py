@@ -73,9 +73,13 @@ def test_source_imports_no_jax_or_reference_package(path):
     "gubernator_tpu_torch.runtime.pager",
     "gubernator_tpu_torch.bench",
     "gubernator_tpu_torch.ops.cuda_decide",
+    "gubernator_tpu_torch.parallel.mesh",
+    "gubernator_tpu_torch.runtime.topology",
+    "gubernator_tpu_torch.runtime.ici_engine",
 ])
 def test_slice_modules_are_checked(module):
-    """The narrow layout, the paged table, the pager, the bench and the
-    scan wrapper are among the modules imported above with jax and
+    """The narrow layout, the paged table, the pager, the bench, the
+    scan and sharded wrappers, the mesh, the topologies and the mesh
+    engine are among the modules imported above with jax and
     gubernator_tpu blocked."""
     assert module in _port_modules()
