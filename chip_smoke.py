@@ -6,8 +6,9 @@ Builds the port's native code from the checkout (the CUDA decide-wave
 and decide-scan kernels, four configurations each, and the sharded
 decide-wave kernel, two configurations, one nvcc per source, all built
 for sm_90a and linked into one library, and the key hasher with g++,
-every compiler started at once), then drives it at two sizes and prints
-one JSON line per phase:
+every compiler started at once; the build line gives each kernel's
+registers and spills), then drives it at two sizes and prints one JSON
+line per phase:
 
 - 1M (BASELINE.json config 3, "1M-key Zipfian"): a flat table of 2^18
   groups x 8 ways holding 1,000,000 live keys; kernel configurations
@@ -28,14 +29,21 @@ Phases, for each size:
    scalars, the whole physical table and (paged) the unchanged page map
    (tolerance: none, all int64). The paged tables map 768 random logical
    pages onto the frames in a scrambled order, so about a quarter of the
-   lanes are sentinel lanes.
+   lanes are sentinel lanes. Then two more waves of 1024 lanes for the
+   team of threads per lane, each on its own table of 4,096 groups
+   (paged: 3/4 of 64 pages resident, scrambled): a tie-heavy wave (8
+   ways: groups all empty, all expired, all live with one LRU stamp, one
+   key live at two ways, a key expired beside its live copy, a mix) and
+   a wave of a 4-way table (a team of 4), bit-exact against the plain
+   version in the same way (`tie_wave`, `ways4_wave`).
 2. times, over fresh waves at B = 1024 (paged: groups on resident pages
    only, as the main path runs them): the kernel's median device time
    per launch (CUDA events, L2 flushed before each, device held busy
    while the host enqueues), the median of the whole launch path, the
    median of 5 runs of 200 back-to-back launches, the kernel's device
    time from torch.profiler, the plain version's median and the byte
-   bound, which counts the live matches each timed launch found.
+   bound, which counts the live matches each timed launch found; and a
+   B sweep, events and profiler time per wave at B = 128, 1024 and 4096.
 3. scan_kernel: the scan kernel (`decide_scan.cu`, T = 32 waves in one
    cooperative launch) of each configuration of the size against its
    plain version (`scan_plain`) and against 32 successive launches of
@@ -53,7 +61,11 @@ Phases, for each size:
    torch.profiler's kernel time), the same 32 waves as 32 wave-kernel
    launches (events, and the profiler's summed kernel time), the plain
    version's ms and the byte bound summed over the steps. Paged scans
-   are timed on groups of resident pages, as the bench runs them.
+   are timed on groups of resident pages, as the bench runs them. Then
+   team_vs_scan: the wave kernel (a team of threads per lane) against
+   the scan kernel (still a thread per lane) at B = 4096 in this run,
+   profiler time per wave (the B sweep's, and on the scan's own steps)
+   beside the scan's per step.
 5. main_path: `V1Service.get_rate_limits` over a CUDA `DeviceEngine` in
    each configuration, 8 calls of 1,000 Zipf(1.1) items, against one CPU
    engine (flat, fused: the plain version) on the same calls and frozen
@@ -69,7 +81,8 @@ Phases, for each size:
    output field and the 9 scalars, the three tables equal after every
    wave, and the wave kernel's answers equal on every owned lane with
    the psum's slot. Flat on the 1M image; on the 10M frames with the
-   scrambled map, whose non-resident lanes no shard owns.
+   scrambled map, whose non-resident lanes no shard owns. Then phase 1's
+   tie-heavy and 4-way waves through the sharded kernel (8 shards).
 7. mesh_times: phase 2's times for the sharded kernel (8 shards).
 8. mesh_main_path: `V1Service` over an `IciEngine` of 8 shards on the
    card per configuration (1M flat; 10M paged, 96 frames of the 768 per
@@ -102,6 +115,7 @@ import argparse
 import asyncio
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -156,6 +170,8 @@ ITEMS = 1000
 SCAN_T = 32  # steps per scan, as the bench's chunk
 SCAN_B = 4096  # lanes per step, as the bench's batch
 SCAN_REPS = 20
+# Lane counts of the wave and sharded kernels' B sweep (`times`)
+SWEEP_B = (128, 1024, 4096)
 # Shards of the mesh tier on the one card: the JAX package's mesh size
 # (its tests fake 8 devices; the v5e-8 north star)
 MESH_SHARDS = 8
@@ -200,13 +216,14 @@ def free_device() -> None:
 # seeded data
 
 
-def live_image(rng, size: Size) -> SlotTable:
-    """Wide numpy image of the logical table with `size.live_keys` keys,
-    each in a free way of its group: mixed token/leaky, expiries on both
-    sides of NOW, a few store invalidation marks. Limits and bursts stay
-    inside the encode clamp (narrow stores them in 32 bits)."""
+def live_image(rng, size: Size, ways: int = WAYS) -> SlotTable:
+    """Wide numpy image of the logical table of `ways` ways with
+    `size.live_keys` keys, each in a free way of its group: mixed
+    token/leaky, expiries on both sides of NOW, a few store invalidation
+    marks. Limits and bursts stay inside the encode clamp (narrow stores
+    them in 32 bits)."""
     ng = size.num_groups
-    n = ng * WAYS
+    n = ng * ways
     k = size.live_keys
     cand = k + k // 8
     hi = rng.integers(1, 1 << 62, cand, dtype=np.int64)
@@ -217,10 +234,10 @@ def live_image(rng, size: Size) -> SlotTable:
     first = np.searchsorted(g_sorted, g_sorted, side="left")
     rank = np.empty(cand, np.int64)
     rank[order] = np.arange(cand) - first
-    keep = np.nonzero(rank < WAYS)[0][:k]
+    keep = np.nonzero(rank < ways)[0][:k]
     if keep.size != k:
         raise RuntimeError(f"placed only {keep.size} keys")
-    slot = grp[keep] * WAYS + rank[keep]
+    slot = grp[keep] * ways + rank[keep]
 
     col = {f: np.zeros(n, SLOT_DTYPES[f]) for f in SlotTable._fields}
     leaky = rng.random(k) < 0.3
@@ -247,16 +264,19 @@ def live_image(rng, size: Size) -> SlotTable:
     return SlotTable(**col)
 
 
-def smoke_wave(rng, image: SlotTable, now: int, num_groups: int, groups=None) -> RequestBatch:
-    """One full wave: 1024 distinct groups (random, or `groups`), ~60%
-    lanes on a live key of the image, the rest new keys; token/leaky,
-    RESET_REMAINING and DRAIN_OVER_LIMIT, negative and zero limits, a
-    few Gregorian lanes and inactive (padding) lanes."""
+def smoke_wave(rng, image: SlotTable, now: int, num_groups: int, groups=None,
+               lanes: int = B, ways: int = WAYS) -> RequestBatch:
+    """One full wave: `lanes` (B) distinct groups (random, or `groups`),
+    ~60% lanes on a live key of the image (a table of `ways` ways), the
+    rest new keys; token/leaky, RESET_REMAINING and DRAIN_OVER_LIMIT,
+    negative and zero limits, a few Gregorian lanes and inactive
+    (padding) lanes."""
+    B = lanes  # noqa: N806
     b = RequestBatch.zeros(B)
     if groups is None:
         groups = rng.choice(num_groups, B, replace=False).astype(np.int64)
-    way = rng.integers(0, WAYS, B)
-    slot = groups * WAYS + way
+    way = rng.integers(0, ways, B)
+    slot = groups * ways + way
     reuse = (rng.random(B) < 0.6) & image.used[slot]
     new_lo = groups + num_groups * rng.integers(1, 1 << 40, B)
     b.key_hi[:] = np.where(reuse, image.key_hi[slot], rng.integers(1, 1 << 62, B))
@@ -294,24 +314,142 @@ def scrambled_page_map(rng, size: Size) -> np.ndarray:
     return pm
 
 
-def resident_groups(rng, size: Size, page_map: np.ndarray) -> np.ndarray:
-    """B distinct logical groups, all on pages the map holds resident:
-    the main path's case, where the pager promotes a wave's pages before
-    the wave runs, so no lane is a sentinel lane."""
+def resident_groups(rng, size: Size, page_map: np.ndarray, lanes: int = B) -> np.ndarray:
+    """`lanes` distinct logical groups, all on pages the map holds
+    resident: the main path's case, where the pager promotes a wave's
+    pages before the wave runs, so no lane is a sentinel lane."""
     mapped = np.nonzero(page_map >= 0)[0]
     gpp = size.page_groups
-    idx = rng.choice(mapped.size * gpp, B, replace=False)
+    idx = rng.choice(mapped.size * gpp, lanes, replace=False)
     return mapped[idx // gpp] * gpp + idx % gpp
 
 
-def kernel_tables(image: SlotTable, size: Size, layout: str, page_map):
+# The groups of the tie-heavy and 4-way check tables; paged: pages of
+# TEAM_GPP groups, 3/4 of them resident
+TEAM_GROUPS = 4096
+TEAM_GPP = 64
+
+
+def tie_image(rng, now: int):
+    """Wide image of TEAM_GROUPS groups x WAYS built to tie the way
+    selection; group g is of kind g % 6: 0 all ways empty; 1 all
+    expired; 2 all live with one LRU stamp; 3 one live key at ways 1 and
+    W - 1 (the first must win); 4 a key expired at way 0 and live at way
+    W - 1; 5 a mix of empty, expired, invalidated and LRU-tied ways.
+    Returns the image and each group's tie key (kinds 3 and 4: the
+    duplicated key; else the key at a random way)."""
+    ng = TEAM_GROUPS
+    n = ng * WAYS
+    g = np.repeat(np.arange(ng), WAYS)
+    w = np.tile(np.arange(WAYS), ng)
+    kind = g % 6
+    first = g * WAYS
+    hi = rng.integers(1, 1 << 62, n, dtype=np.int64)
+    lo = rng.integers(0, 1 << 62, n, dtype=np.int64)
+    used = kind != 0
+    expire = now + rng.integers(1, 60_000, n)
+    lru = np.full(n, now - 1000, np.int64)
+    inv = np.zeros(n, np.int64)
+    expire = np.where(kind == 1, now - rng.integers(1, 1000, n), expire)
+    dup = (kind == 3) & (w == WAYS - 1)
+    hi[dup], lo[dup] = hi[first[dup] + 1], lo[first[dup] + 1]
+    expire = np.where((kind == 4) & (w == 0), now - 5, expire)
+    last = (kind == 4) & (w == WAYS - 1)
+    hi[last], lo[last] = hi[first[last]], lo[first[last]]
+    mix = kind == 5
+    used = np.where(mix, rng.random(n) < 0.7, used)
+    expire = np.where(mix, now + rng.choice([-50, 40_000], n), expire)
+    inv = np.where(mix & (rng.random(n) < 0.2), now + rng.choice([-9, 9], n), 0)
+    lru = np.where(mix, now - rng.choice([100, 100, 7000], n), lru)
+    leaky = rng.random(n) < 0.4
+    limit = rng.integers(1, 50, n)
+    col = {f: np.zeros(n, SLOT_DTYPES[f]) for f in SlotTable._fields}
+    col.update(
+        key_hi=np.where(used, hi, 0), key_lo=np.where(used, lo, 0), used=used,
+        algo=leaky.astype(np.int8), limit=np.where(used, limit, 0),
+        duration=np.where(used, rng.choice([1000, 60_000], n), 0),
+        remaining=np.where(used, np.where(leaky, limit << 19, limit // 2), 0),
+        stamp=np.where(used, now - rng.integers(0, 5000, n), 0),
+        expire_at=np.where(used, expire, 0), invalid_at=np.where(used, inv, 0),
+        burst=np.where(used & leaky, limit, 0), lru=np.where(used, lru, 0),
+    )
+    col = {f: np.asarray(v, SLOT_DTYPES[f]) for f, v in col.items()}
+    gw = np.arange(ng) * WAYS
+    way = np.where(np.arange(ng) % 6 == 3, 1, np.where(np.arange(ng) % 6 == 4, 0,
+                                                      rng.integers(0, WAYS, ng)))
+    return SlotTable(**col), (hi[gw + way], lo[gw + way])
+
+
+def tie_wave(rng, tie_keys, now: int) -> RequestBatch:
+    """B lanes on distinct groups of the tie image: 90% ask their group's
+    tie key, the rest a new key; token/leaky, RESET_REMAINING and
+    DRAIN_OVER_LIMIT, a few inactive lanes."""
+    b = RequestBatch.zeros(B)
+    groups = rng.choice(TEAM_GROUPS, B, replace=False)
+    ask = rng.random(B) < 0.9
+    b.key_hi[:] = np.where(ask, tie_keys[0][groups], rng.integers(1, 1 << 62, B))
+    b.key_lo[:] = np.where(ask, tie_keys[1][groups], rng.integers(0, 1 << 62, B))
+    b.group[:] = groups.astype(np.int32)
+    b.algo[:] = rng.random(B) < 0.4
+    b.behavior[:] = rng.choice([0, 0, 0, 8, 32], B)
+    b.hits[:] = rng.choice([0, 1, 1, 2, 60], B)
+    b.limit[:] = rng.integers(1, 50, B)
+    b.duration[:] = rng.choice([1000, 60_000], B)
+    b.rate_num[:] = b.duration
+    b.eff_duration[:] = b.duration
+    b.burst[:] = np.where(b.algo == 1, b.limit, 0)
+    b.created_at[:] = now - rng.choice([0, 0, 3], B)
+    b.active[:] = rng.random(B) < 0.97
+    return b
+
+
+def team_checks(rng, layout: str, paged: bool, shards: int = 0) -> dict:
+    """The team's selection on the card, against the plain version: one
+    tie-heavy wave (`tie_image`, 8 ways) and one wave of a 4-way table
+    (T = 4), each of B lanes on its own table of TEAM_GROUPS groups
+    (paged: a scrambled map of 3/4 of the pages), through the wave
+    kernel or with `shards` the sharded one. Bit-exact on every output
+    field, the 9 sums and the whole table. Returns each wave's counts."""
+    name = cuda_decide.sharded_name(layout) if shards else cuda_decide.config_name(layout, paged)
+    res = {}
+    for what, ways in (("tie_wave", WAYS), ("ways4_wave", 4)):
+        nlp = TEAM_GROUPS // TEAM_GPP
+        size = Size(what, TEAM_GROUPS, 2 * TEAM_GROUPS, TEAM_GPP if paged else 0,
+                    nlp * 3 // 4 if paged else 0, ())
+        if ways == WAYS:
+            image, tie_keys = tie_image(rng, NOW)
+            hb = tie_wave(rng, tie_keys, NOW)
+        else:
+            image = live_image(rng, size, ways)
+            hb = smoke_wave(rng, image, NOW, TEAM_GROUPS, ways=ways)
+        pm = scrambled_page_map(rng, size) if paged else None
+        kt, pt = kernel_tables(image, size, layout, pm, ways)
+        db = batch_to_device(hb, DEVICE)
+        sync()
+        before = cuda_decide.CONFIG_LAUNCHES[name]
+        ko, ks = run_kernel(kt, db, NOW, layout, size.page_groups, shards, ways)
+        po, ps = run_plain(pt, db, NOW, layout, size.page_groups, shards, ways)
+        sync()
+        err = _max_abs_err(ko, po, ks, ps)
+        if not torch.equal(_rows(kt), _rows(pt)):
+            rows = int((_rows(kt) != _rows(pt)).any(dim=1).sum())
+            raise AssertionError(f"{name} {what}: table differs from the plain version in {rows} rows")
+        res[what] = {"ways": ways,
+                     "hits": int(po.hits), "misses": int(po.misses),
+                     "unexpired_evictions": int(po.unexpired_evictions),
+                     "launches": cuda_decide.CONFIG_LAUNCHES[name] - before, "max_abs_err": err}
+    return res
+
+
+def kernel_tables(image: SlotTable, size: Size, layout: str, page_map, ways: int = WAYS):
     """(kernel table, plain table): two equal device copies of the image
-    in `layout`; paged: the frames hold the mapped logical pages."""
+    (`ways` ways) in `layout`; paged: the frames hold the mapped logical
+    pages."""
     mod = LAYOUT[layout]
     if page_map is None:
         kt = mod.pack_table(image, device=DEVICE)
         return kt, type(kt)(kt.data.clone())
-    ps = size.page_groups * WAYS
+    ps = size.page_groups * ways
     lp_of_frame = np.empty(size.page_budget, np.int64)
     mapped = np.nonzero(page_map >= 0)[0]
     lp_of_frame[page_map[mapped]] = mapped
@@ -326,30 +464,30 @@ def _rows(table) -> torch.Tensor:
     return table.data.data if isinstance(table, PagedTable) else table.data
 
 
-def run_kernel(table, db, now: int, layout: str, gpp: int, shards: int = 0):
+def run_kernel(table, db, now: int, layout: str, gpp: int, shards: int = 0, ways: int = WAYS):
     """One wave of the wave kernel, or with `shards` of the sharded
     kernel (MESH_SHARDS shards of the table on the card)."""
     if shards:
         pm = table.page_map if isinstance(table, PagedTable) else None
-        return cuda_decide.decide_sharded(_rows(table), pm, db, now, layout=layout, ways=WAYS,
+        return cuda_decide.decide_sharded(_rows(table), pm, db, now, layout=layout, ways=ways,
                                           n_shards=shards, gpp=gpp)
     if isinstance(table, PagedTable):
         _, out, scan = cuda_decide.decide_paged_with_scan(
-            table, db, now, layout=layout, ways=WAYS, gpp=gpp
+            table, db, now, layout=layout, ways=ways, gpp=gpp
         )
     else:
         _, out, scan = cuda_decide.decide_flat_with_scan(
-            table, db, now, layout=layout, ways=WAYS
+            table, db, now, layout=layout, ways=ways
         )
     return out, scan
 
 
-def run_plain(table, db, now: int, layout: str, gpp: int, shards: int = 0):
+def run_plain(table, db, now: int, layout: str, gpp: int, shards: int = 0, ways: int = WAYS):
     pm = table.page_map if isinstance(table, PagedTable) else None
     if shards:
-        return fused.sharded_plain(CODEC[layout], _rows(table), pm, db, now, ways=WAYS,
+        return fused.sharded_plain(CODEC[layout], _rows(table), pm, db, now, ways=ways,
                                    n_shards=shards, gpp=gpp)
-    return fused.wave_plain(CODEC[layout], _rows(table), pm, db, now, ways=WAYS, gpp=gpp)
+    return fused.wave_plain(CODEC[layout], _rows(table), pm, db, now, ways=ways, gpp=gpp)
 
 
 def resident_lanes(hb: RequestBatch, size: Size, page_map) -> np.ndarray:
@@ -393,15 +531,34 @@ def bound_ms(hb, layout, resident, paged, hits, freed_bytes=1):
 LIBS = ["decide_cuda", "guberhash"]
 
 
+def _ptxas_kernels(log: str) -> dict:
+    """{"decide_wave_kernel<layout,paged>": {registers, spill_stores,
+    spill_loads}} from nvcc's -Xptxas -v report."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"entry function '.*\d(decide_[a-z]+_kernel)ILi(\d+)ELb(\d)E", ln)
+        if m:
+            cur = out.setdefault(f"{m.group(1)}<{m.group(2)},{m.group(3)}>", {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     _build.build(LIBS, force=True)
-    ptxas = [
-        ln.strip() for ln in _build.log_path("decide_cuda").read_text().splitlines()
-        if "entry function" in ln or "registers" in ln or "spill" in ln
-    ]
+    log = _build.log_path("decide_cuda").read_text()
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if "entry function" in ln or "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libs": LIBS, "ptxas": ptxas})
+          "libs": LIBS, "kernels": _ptxas_kernels(log), "ptxas": ptxas})
 
 
 def _out_err(ko, po, what="the plain version") -> float:
@@ -454,11 +611,13 @@ def phase_kernel(rng, image, size, layout, page_map):
             raise AssertionError(f"{name} wave {w}: the page map changed")
         sentinel += int((db.active & (ko.slot == n)).sum())
     live = int(((_rows(kt)[:, 2] & 1) != 0).sum())  # META is col 2 in both layouts
+    launches = cuda_decide.CONFIG_LAUNCHES[name] - before
+    team = team_checks(rng, layout, page_map is not None)
+    err = max([err] + [t["max_abs_err"] for t in team.values()])
     res = {"phase": "kernel", "size": size.name, "kernel": name, "ok": True,
            "waves": WAVES, "batch": B, "table_rows": n,
            "table_mb": _rows(kt).numel() * 8 / 1e6, "live_rows_after": live,
-           "sentinel_lanes": sentinel,
-           "launches": cuda_decide.CONFIG_LAUNCHES[name] - before,
+           "sentinel_lanes": sentinel, "launches": launches, **team,
            "max_abs_err": err, "tolerance": "bit-exact (int64)"}
     emit(res)
     return kt, pt, err
@@ -512,11 +671,13 @@ def phase_mesh_kernel(rng, image, size, layout, page_map):
         if not (ko.status[~owned] == 0).all() or not (ko.remaining[~owned] == 0).all():
             raise AssertionError(f"{name} wave {w}: an unowned lane has an answer")
         unowned += int((db.active & ~owned).sum())
+    launches = cuda_decide.CONFIG_LAUNCHES[name] - before
+    team = team_checks(rng, layout, paged, MESH_SHARDS)
+    err = max([err] + [t["max_abs_err"] for t in team.values()])
     res = {"phase": "mesh_kernel", "size": size.name, "kernel": name, "ok": True,
            "shards": MESH_SHARDS, "paged": paged, "waves": WAVES, "batch": B,
            "table_rows": n, "rows_per_shard": n_local,
-           "active_unowned_lanes": unowned,
-           "launches": cuda_decide.CONFIG_LAUNCHES[name] - before,
+           "active_unowned_lanes": unowned, "launches": launches, **team,
            "max_abs_err": err, "tolerance": "bit-exact (int64)"}
     emit(res)
     return kt, pt, err
@@ -607,11 +768,11 @@ def phase_times(rng, image, size, layout, page_map, kt, pt, card, shards=0):
     sync()
     # (a) the kernel on the card: median of 200 launches timed one by
     # one, L2 flushed before each, the device held busy (~1 ms) while
-    # the host enqueues, so the window holds the scalar memset and the
-    # kernel only
+    # the host enqueues, so the window holds the kernel only (it writes
+    # its own sums: one device operation per wave)
     k_ms = _median_ms(kernel_a, reps, flush, hold_cycles=2_000_000)
     # (a') the same without the hold: the launch path a lone wave pays
-    # (wrapper checks and allocations, ctypes call, memset, kernel)
+    # (wrapper checks and allocations, ctypes call, kernel)
     path_ms = _median_ms(kernel, reps, flush)
     # (b) runs of 200 back-to-back launches, events around each run;
     # the median of 5 runs, per launch (host-paced, so noisy)
@@ -625,8 +786,31 @@ def phase_times(rng, image, size, layout, page_map, kt, pt, card, shards=0):
         e.synchronize()
         runs.append(s.elapsed_time(e) / reps)
     # (c) the kernel's own device time, from the profiler's trace
-    dev_ms = _profiled_device_ms(
-        kernel, reps, "decide_sharded_kernel" if shards else "decide_wave_kernel")
+    symbol = "decide_sharded_kernel" if shards else "decide_wave_kernel"
+    dev_ms = _profiled_device_ms(kernel, reps, symbol)
+    # (d) the B sweep: (a) and (c) at 128, 1024 (the numbers above) and
+    # 4096 lanes, fresh waves of each width
+    sweep = {B: {"events_ms": k_ms, "profiler_ms": dev_ms}}
+    for lanes in SWEEP_B:
+        if lanes == B:
+            continue
+        dbl = [batch_to_device(smoke_wave(
+            rng, image, now, size.num_groups,
+            resident_groups(rng, size, page_map, lanes) if paged else None, lanes=lanes), DEVICE)
+            for _ in range(reps)]
+        sync()
+        at = {"i": 0}
+
+        def wide():
+            i = at["i"] % reps
+            at["i"] += 1
+            run_kernel(kt, dbl[i], now, layout, gpp, shards)
+
+        for _ in range(10):
+            wide()
+        sweep[lanes] = {"events_ms": _median_ms(wide, reps, flush, hold_cycles=2_000_000),
+                        "profiler_ms": _profiled_device_ms(wide, reps, symbol)}
+        del dbl
     plain()
     sync()
     p_ms = _median_ms(plain, 20, flush)
@@ -642,7 +826,8 @@ def phase_times(rng, image, size, layout, page_map, kt, pt, card, shards=0):
            "live_matches_per_wave_median": statistics.median(hits),
            "active_lanes_per_wave_median": statistics.median(
                int(np.count_nonzero(hb.active)) for hb in hbs),
-           "reps_kernel": reps, "reps_plain": 20, "card": card}
+           "reps_kernel": reps, "reps_plain": 20,
+           "b_sweep": [{"batch": k, **v} for k, v in sorted(sweep.items())], "card": card}
     if shards:
         res.update(shards=shards, paged=paged)
     emit(res)
@@ -1158,6 +1343,7 @@ def run_size(rng, size: Size, card: str):
         tables, serr = phase_scan_kernel(rng, image, size, layout, pmap)
         stimes = phase_scan_times(rng, size, layout, pmap, tables, card)
         scans[cuda_decide.config_name(layout, paged, scan=True)] = (serr, stimes)
+        team_vs_scan(size, layout, paged, times, stimes, card)
         del tables
         free_device()
         kt, pt, merr = phase_mesh_kernel(rng, image, size, layout, pmap)
@@ -1171,6 +1357,26 @@ def run_size(rng, size: Size, card: str):
     del reference
     return ({k: (err, times, main[k]) for k, (err, times) in checked.items()}, scans,
             meshes, mesh_main)
+
+
+def team_vs_scan(size, layout, paged, times, stimes, card) -> None:
+    """The team wave kernel against the one-thread-per-lane body of the
+    same run, at B = 4096 on the card: the wave kernel's profiler time
+    per wave (the B sweep's fresh waves, and the scan's own 32 steps as
+    32 wave launches) beside the scan kernel's profiler time per step
+    (the scan still runs a thread per lane; in PRs 3-4 a step cost what
+    one wave kernel cost, within 3%)."""
+    wave = next(r for r in times["b_sweep"] if r["batch"] == SCAN_B)["profiler_ms"]
+    step = stimes["step_device_ms_profiler"]
+    on_steps = stimes["wave_device_ms_profiler"]
+    emit({"phase": "team_vs_scan", "size": size.name, "batch": SCAN_B,
+          "wave_kernel": cuda_decide.config_name(layout, paged),
+          "scan_kernel": cuda_decide.config_name(layout, paged, scan=True),
+          "wave_device_ms_profiler": wave, "wave_on_scan_steps_device_ms_profiler": on_steps,
+          "scan_step_device_ms_profiler": step,
+          "wave_over_scan_step": wave / step if wave and step else None,
+          "wave_on_steps_over_scan_step": on_steps / step if on_steps and step else None,
+          "card": card})
 
 
 def kernel_entry(name, layout, paged, err, times, main):

@@ -1,18 +1,34 @@
 // One lane of the decide wave: probe the lane's W-way group, pick the
 // way, run the token- or leaky-bucket branch, store the new row.
 //
-// This is the per-lane body of the Hopper kernels in decide_wave.cu and
-// decide_scan.cu (the port of gubernator_tpu/ops/pallas_decide.py::
-// _make_kernel, one wave or a scan of waves), in four
-// static configurations: layout fused or narrow, flat or paged table
-// (template parameters of decide_lane; no run-time branch on them;
-// `dispatch` picks one). The kernels also share the block reduction of
-// the scalars (`block_add_scalars`). It
-// computes exactly what _wave_compute computes (pallas_decide.py:201-386)
-// for one lane, and what the plain PyTorch version
-// ops/fused.py::wave_plain computes; the three are bit-exact. The header
-// also compiles as plain C++ (decide_lane_host.cc) so the CPU tests run
-// this very code against the plain version.
+// The lane code of the Hopper kernels in decide_wave.cu, decide_sharded.cu
+// and decide_scan.cu (the port of gubernator_tpu/ops/pallas_decide.py::
+// _make_kernel: one wave, one wave over an owner-sharded table, a scan of
+// waves), in four static configurations: layout fused or narrow, flat or
+// paged table (template parameters; no run-time branch on them;
+// `dispatch` picks one). It computes exactly what _wave_compute computes
+// (pallas_decide.py:201-386) for one lane, and what the plain PyTorch
+// version ops/fused.py::wave_plain computes; the three are bit-exact.
+// The header also compiles as plain C++ (decide_lane_host.cc) so the CPU
+// tests run this very code against the plain version.
+//
+// Two arrangements of one lane's work share every piece of it:
+//   - a TEAM of T threads per lane (team_decide; the wave and sharded
+//     kernels). T is the smallest power of two >= ways, at most 32.
+//     Member t loads way t's whole row (ways t, t + 32, ... when ways >
+//     32) in one round of independent loads, evaluates it (way_eval),
+//     and the team reduces the candidates with a butterfly of
+//     __shfl_xor_sync over log2 T steps (combine). The member that holds
+//     the chosen way's row runs the bucket branch (lane_finish) from its
+//     registers: no second read of the row. The chain of a lane is then
+//     page map -> rows -> store, three dependent steps, where one thread
+//     walking the ways paid up to W + 2.
+//   - ONE thread per lane (lane_decide; the scan kernel), which folds the
+//     ways with the same way_eval and combine, reading the probe columns
+//     of each way and the rest of the row for a live match.
+// The host twin (decide_lane_host.cc) emulates the team: T candidates
+// from member_eval, the butterfly's combine calls in the device's order
+// (team_reduce_emulated), the owner's lane_finish.
 //
 // int64 semantics follow JAX, not C++:
 //   - `//` and `%` floor (floor_div / floor_mod); C++ truncates. `limit`
@@ -22,7 +38,9 @@
 //     undefined behaviour on signed overflow or a negative left shift.
 //   - `>>` of a signed value is arithmetic (nvcc and g++ both do so).
 //   - argmax over the live-match mask takes the FIRST true way; argmin
-//     over the insertion score takes the FIRST minimum (strict `<`).
+//     over the insertion score takes the FIRST minimum (strict `<`):
+//     combine takes the lowest live-match way and the lexicographic
+//     minimum of (score, way), which is both in any order of folding.
 // Unlike the JAX body, which computes both branches and selects, a lane
 // runs only its algorithm's branch: same result, and the ten int64
 // divisions of _leak_fixed stay off token lanes.
@@ -36,6 +54,11 @@
 #define GUBER_HD __host__ __device__ __forceinline__
 #else
 #define GUBER_HD static inline
+#endif
+#if defined(__CUDA_ARCH__)
+#define GUBER_UNROLL _Pragma("unroll")
+#else
+#define GUBER_UNROLL
 #endif
 
 // Arguments of one wave; the layout is mirrored by a ctypes.Structure in
@@ -64,8 +87,11 @@ struct GuberWaveArgs {
   int64_t* out_evicted_hi;
   int64_t* out_evicted_lo;
   uint8_t* out_freed;
-  int64_t* scalars;  // (9,) accumulated: see S_* below
+  int64_t* scalars;  // (9,) the wave's sums, zero at launch: see S_* below
   const int32_t* page_map;  // (n_log_pages,) paged only: frame or -1
+  // Wave and sharded kernels only (null for the scan): the (9,) sums of
+  // the next launch on the same stream, which this launch zeroes.
+  int64_t* next_scalars;
   int64_t n_slots;  // physical rows of the table
   int64_t now;
   int32_t ways;
@@ -378,97 +404,261 @@ struct LaneOut {
   bool freed;
 };
 
-// One lane of the wave in one static configuration: layout LAYOUT, and
-// PAGED (the group goes through the page map) or flat, for a lane that
-// is `active` with logical group `group` (the caller reads both: from
-// the batch, or from a shard's ownership mask). Returns the lane's
-// outputs, stores its new table row if it is active and resident, and
-// ADDS its scalar contributions to `scal`.
+// A padding lane reads nothing, writes no row (scatter-drop by
+// omission) and reports slot == n_slots.
+GUBER_HD LaneOut padding_out(const GuberWaveArgs& a) {
+  return LaneOut{0, 0, 0, 0, a.n_slots, 0, 0, false};
+}
+
+// ---------------------------------------------------------------------------
+// The way selection (probe_ways, ops/fused.py), as one rule that the
+// team's butterfly, the host twin and the serial fold all use.
+
+// A candidate of the selection over some of the group's ways: the
+// lexicographic minimum (score, way) of the insertion score, and the
+// lowest way that holds a live match of the lane's key (NO_WAY if none).
+struct Cand {
+  int64_t score;
+  int32_t way, match;
+};
+constexpr int32_t NO_WAY = 0x7fffffff;
+constexpr int64_t NO_SCORE = 0x7fffffffffffffffLL;
+
+// The identity of combine: a team member with no way to evaluate.
+GUBER_HD Cand no_cand() { return Cand{NO_SCORE, NO_WAY, NO_WAY}; }
+
+// Way w's candidate (probe_ways for one way): used, expired, match,
+// the category (0 expired copy of the key, 1 empty, 2 expired, 3 live),
+// the tie (the clipped LRU stamp for a live way, else w) and the score
+// cat << 44 | tie, below NO_SCORE for every input.
+GUBER_HD Cand way_eval(const Probe& p, int64_t key_hi, int64_t key_lo,
+                       int64_t now, int32_t w) {
+  const bool used = (p.meta & 1) != 0;
+  const bool expired = used && (p.exp < now || (p.inv != 0 && p.inv < now));
+  const bool match = used && p.khi == key_hi && p.klo == key_lo;
+  const int64_t cat =
+      (match && expired) ? 0 : (!used ? 1 : (expired ? 2 : 3));
+  const int64_t lru = p.meta >> 4;
+  const int64_t tie = cat == 3 ? imin(imax(lru, 0), LRU_CLIP) : (int64_t)w;
+  return Cand{wadd(shl(cat, 44), tie), w, (match && !expired) ? w : NO_WAY};
+}
+
+// Two candidates into one: associative and commutative, so any order of
+// folding gives the serial loop's answer (first live match; first
+// minimum of the score under strict `<`, i.e. the lower way on a tie).
+GUBER_HD Cand combine(const Cand& a, const Cand& b) {
+  const bool take_b = b.score < a.score || (b.score == a.score && b.way < a.way);
+  return Cand{take_b ? b.score : a.score, take_b ? b.way : a.way,
+              b.match < a.match ? b.match : a.match};
+}
+
+// The way the lane writes: its first live match, else the insert way.
+GUBER_HD int32_t chosen_way(const Cand& c) {
+  return c.match != NO_WAY ? c.match : c.way;
+}
+
+// ---------------------------------------------------------------------------
+// The team: T threads per lane, member t evaluating ways t, t + 32, ...
+
+constexpr int TEAM_MAX = 32;  // a warp
+constexpr int TEAM_THREADS = 128;  // threads per block of the team kernels
+
+// T: the smallest power of two >= ways, at most a warp.
+GUBER_HD int team_size(int ways) {
+  int t = 1;
+  while (t < ways && t < TEAM_MAX) t <<= 1;
+  return t;
+}
+
+// Blocks of a team kernel for `batch` lanes: TEAM_THREADS / T lanes each.
+GUBER_HD int team_blocks(int batch, int ways) {
+  const int lanes = TEAM_THREADS / team_size(ways);
+  return (batch + lanes - 1) / lanes;
+}
+
+// The member that holds the chosen way's row (way w is member w mod T).
+GUBER_HD int team_owner(const Cand& c, int T) { return chosen_way(c) & (T - 1); }
+
+// The host's emulation of the device butterfly (team_reduce): step by
+// step, member t takes combine(its own, member t ^ off's), off = T/2 ..
+// 1, every member from the values of the step before. All T end equal.
+GUBER_HD void team_reduce_emulated(Cand c[TEAM_MAX], int T) {
+  for (int off = T >> 1; off > 0; off >>= 1) {
+    Cand next[TEAM_MAX];
+    for (int t = 0; t < T; ++t) next[t] = combine(c[t], c[t ^ off]);
+    for (int t = 0; t < T; ++t) c[t] = next[t];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Rows.
+
+template <int LAYOUT>
+struct Row {
+  int64_t c[Cols<LAYOUT>::NCOLS];
+};
+
+template <int LAYOUT>
+GUBER_HD Probe probe_of(const Row<LAYOUT>& r) {
+  using C = Cols<LAYOUT>;
+  return Probe{r.c[C::KHI], r.c[C::KLO], r.c[C::META], r.c[C::EXP], r.c[C::INV]};
+}
+
+// A whole row in one round of independent loads. On the card a fused
+// row (80 B at a multiple of 80 B from a 16-byte aligned table) is five
+// 16-byte loads; a narrow row (72 B) is 16-byte aligned only at even
+// slots, so it is nine 8-byte loads: the same sectors, and no load
+// waits on another.
+template <int LAYOUT>
+GUBER_HD Row<LAYOUT> load_row(const int64_t* p) {
+  Row<LAYOUT> r;
+#if defined(__CUDA_ARCH__)
+  if constexpr (LAYOUT == LAYOUT_FUSED) {
+    const longlong2* v = reinterpret_cast<const longlong2*>(p);
+    GUBER_UNROLL
+    for (int k = 0; k < 5; ++k) {
+      const longlong2 x = v[k];
+      r.c[2 * k] = x.x;
+      r.c[2 * k + 1] = x.y;
+    }
+  } else
+#endif
+  {
+    GUBER_UNROLL
+    for (int k = 0; k < Cols<LAYOUT>::NCOLS; ++k) r.c[k] = p[k];
+  }
+  return r;
+}
+
+template <int LAYOUT>
+GUBER_HD void store_row(int64_t* p, const Row<LAYOUT>& r) {
+#if defined(__CUDA_ARCH__)
+  if constexpr (LAYOUT == LAYOUT_FUSED) {
+    longlong2* v = reinterpret_cast<longlong2*>(p);
+    GUBER_UNROLL
+    for (int k = 0; k < 5; ++k) v[k] = make_longlong2(r.c[2 * k], r.c[2 * k + 1]);
+  } else
+#endif
+  {
+    GUBER_UNROLL
+    for (int k = 0; k < Cols<LAYOUT>::NCOLS; ++k) p[k] = r.c[k];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The lane.
+
+// What a lane reads besides its group's rows: the request columns and,
+// paged, its page-map entry. The request columns are read for every
+// lane of the batch (`in_batch`), active or not, so their loads do not
+// wait for the `active` flag's; an inactive lane's are never used.
+struct LaneCtx {
+  bool active, resident;
+  int64_t base;  // first slot of the lane's physical group
+  int64_t key_hi, key_lo;
+  int8_t algo;
+  LaneReq r;
+};
+
+// Lane j that is `active` with logical group `group` (the caller reads
+// both: from the batch, or from a shard's ownership mask); `active`
+// implies `in_batch` (j < batch).
 //
 // Paged (pallas_decide.py:418-422, :529-548): pp = page_map[g / gpp] in
 // int32; a lane whose page is not resident (pp < 0) is a SENTINEL lane.
-// It is still an active lane: it sees an all-empty group (no load), so
-// it does not exist, inserts at way 0 of category "empty" and answers
-// as a fresh bucket; it counts in misses and over_limit, never in the
-// WaveScan sums (only written rows count), stores nothing, and reports
-// slot == n_slots with no evicted key. A page index outside the map
-// (a group beyond the logical table) is treated the same way rather
-// than read out of bounds.
-template <int LAYOUT, bool PAGED>
-GUBER_HD LaneOut lane_decide(const GuberWaveArgs& a, int j, bool active,
-                             int64_t group, int64_t scal[N_SCAL]) {
-  using C = Cols<LAYOUT>;
-  if (!active) {
-    // Padding lane: reads nothing, writes no row (scatter-drop by
-    // omission), reports slot == n_slots.
-    return LaneOut{0, 0, 0, 0, a.n_slots, 0, 0, false};
-  }
-  const int64_t now = a.now;
-  const int64_t key_hi = a.key_hi[j];
-  const int64_t key_lo = a.key_lo[j];
-
-  // Logical -> physical group.
+// It is still an active lane: it sees an all-empty group (no load: every
+// way evaluates a zero row), so it does not exist, inserts at way 0 of
+// category "empty" and answers as a fresh bucket; it counts in misses
+// and over_limit, never in the WaveScan sums (only written rows count),
+// stores nothing, and reports slot == n_slots with no evicted key. A
+// page index outside the map (a group beyond the logical table) is
+// treated the same way rather than read out of bounds.
+template <bool PAGED>
+GUBER_HD LaneCtx lane_ctx(const GuberWaveArgs& a, int j, bool in_batch,
+                          bool active, int64_t group) {
+  LaneCtx x{};
+  x.active = active;
+  if (!in_batch) return x;
+  x.key_hi = a.key_hi[j];
+  x.key_lo = a.key_lo[j];
+  x.algo = a.algo[j];
+  const int32_t bhv = a.behavior[j];
+  x.r.hits = a.hits[j];
+  x.r.limit = a.limit[j];
+  x.r.duration = a.duration[j];
+  x.r.rate_num = a.rate_num[j];
+  x.r.eff_duration = a.eff_duration[j];
+  x.r.greg_expire = a.greg_expire[j];
+  x.r.burst = a.burst[j];
+  x.r.created = a.created_at[j];
+  x.r.greg = (bhv & B_GREG) != 0;
+  x.r.reset = (bhv & B_RESET) != 0;
+  x.r.drain = (bhv & B_DRAIN) != 0;
+  if (!active) return x;
   bool resident = true;
   int64_t pgroup = group;
   if constexpr (PAGED) {
-    const int64_t g = group;
-    const int64_t lp = floor_div(g, a.gpp);
+    const int64_t lp = floor_div(group, a.gpp);
     const int32_t pp =
         (lp >= 0 && lp < a.n_log_pages) ? a.page_map[lp] : int32_t(-1);
     resident = pp >= 0;
     // int32 arithmetic as in the Pallas kernel (wrapping, not UB)
     const uint32_t phys = (uint32_t)pp * (uint32_t)a.gpp +
-                          (uint32_t)(int32_t)floor_mod(g, a.gpp);
+                          (uint32_t)(int32_t)floor_mod(group, a.gpp);
     pgroup = resident ? (int64_t)(int32_t)phys : 0;
   }
-  const int64_t base = pgroup * a.ways;
-  int64_t* const grp = a.table + base * C::NCOLS;
+  x.resident = resident;
+  x.base = pgroup * a.ways;
+  return x;
+}
 
-  // Probe: the way-selection columns of the W ways (probe_ways). An
-  // empty group (the sentinel lane's) leaves the initial values: no
-  // match, insert at way 0, category 1 (empty), zero columns.
-  bool exists = false;
-  int matched_way = 0, insert_way = 0;
-  int64_t best = 0, sel_cat = 1;
-  Probe m{}, ins{};  // columns of the matched way and of the insert way
-  if (resident) {
-    for (int w = 0; w < a.ways; ++w) {
-      const int64_t* row = grp + (int64_t)w * C::NCOLS;
-      const Probe p{row[C::KHI], row[C::KLO], row[C::META], row[C::EXP],
-                    row[C::INV]};
-      const bool used = (p.meta & 1) != 0;
-      const bool expired =
-          used && (p.exp < now || (p.inv != 0 && p.inv < now));
-      const bool match = used && p.khi == key_hi && p.klo == key_lo;
-      if (match && !expired && !exists) {
-        exists = true;
-        matched_way = w;
-        m = p;
-      }
-      const int64_t cat =
-          (match && expired) ? 0 : (!used ? 1 : (expired ? 2 : 3));
-      const int64_t lru = p.meta >> 4;
-      const int64_t tie = cat == 3 ? imin(imax(lru, 0), LRU_CLIP) : (int64_t)w;
-      const int64_t score = wadd(shl(cat, 44), tie);
-      if (w == 0 || score < best) {
-        best = score;
-        insert_way = w;
-        sel_cat = cat;
-        ins = p;
-      }
-    }
+// Member t of the lane's team: its ways t, t + TEAM_MAX, ... (one way,
+// or none, when ways <= 32), each row loaded whole (zero rows for a lane
+// that is inactive or not resident) and evaluated, folded in ascending
+// order. `keep` gets the row the team may ask this member for: its first
+// live match, else its best insert way. (If the member holds a live
+// match, the team's chosen way is a live match, this member's first one
+// if it is the team's lowest; if it holds none, the team asks it only
+// for an insert way.)
+template <int LAYOUT>
+GUBER_HD Cand member_eval(const GuberWaveArgs& a, const LaneCtx& x, int t,
+                          Row<LAYOUT>& keep) {
+  using C = Cols<LAYOUT>;
+  const int64_t* grp = a.table + x.base * C::NCOLS;
+  Cand c = no_cand();
+  keep = Row<LAYOUT>{};
+  for (int w = t; w < a.ways; w += TEAM_MAX) {
+    const Row<LAYOUT> r =
+        x.resident ? load_row<LAYOUT>(grp + (int64_t)w * C::NCOLS) : Row<LAYOUT>{};
+    const Cand e = way_eval(probe_of(r), x.key_hi, x.key_lo, a.now, w);
+    const Cand n = combine(c, e);
+    if (c.match == NO_WAY && (e.match != NO_WAY || n.way == w)) keep = r;
+    c = n;
   }
-  const int way = exists ? matched_way : insert_way;
-  const Probe sp = exists ? m : ins;  // the chosen way's probe columns
-  int64_t* const srow = grp + (int64_t)way * C::NCOLS;
+  return c;
+}
 
-  const bool evicts_live = !exists && sel_cat == 3;
+// The rest of the lane once the way is chosen: `sel` is the team's (or
+// the serial fold's) selection and `row` the chosen way's row as it was
+// read. Runs only the algorithm's branch, stores the new row in place if
+// the lane is active and resident, ADDS the lane's scalar contributions
+// to `scal` and returns its outputs.
+template <int LAYOUT>
+GUBER_HD LaneOut lane_finish(const GuberWaveArgs& a, const LaneCtx& x,
+                             const Cand& sel, const Row<LAYOUT>& row,
+                             int64_t scal[N_SCAL]) {
+  using C = Cols<LAYOUT>;
+  if (!x.active) return padding_out(a);
+  const int64_t now = a.now;
+  const bool exists = sel.match != NO_WAY;
+  const int32_t way = chosen_way(sel);
+  const Probe sp = probe_of(row);
+  const bool evicts_live = !exists && (sel.score >> 44) == 3;
   const bool old_used = (sp.meta & 1) != 0;
   const bool displaced =
-      !exists && old_used && (sp.khi != key_hi || sp.klo != key_lo);
+      !exists && old_used && (sp.khi != x.key_hi || sp.klo != x.key_lo);
 
-  // State of the chosen row: the probe columns already hold META EXP
-  // INV; the rest of the row is read only for a live match.
+  // State of the chosen row, zeroed when the key does not exist.
   SlotState st{};
   if (exists) {
     st.algo = (int8_t)((sp.meta >> 1) & 1);
@@ -476,64 +666,46 @@ GUBER_HD LaneOut lane_decide(const GuberWaveArgs& a, int j, bool active,
     st.expire_at = sp.exp;
     st.invalid_at = sp.inv;
     if constexpr (LAYOUT == LAYOUT_NARROW) {
-      const int64_t limbur = srow[C::LIMBUR];
-      st.limit = limbur_limit(limbur);
-      st.burst = limbur_burst(limbur);
-      st.duration = srow[C::DUR];
-      st.remaining = srow[C::REM];
-      st.stamp = srow[C::STM];
+      st.limit = limbur_limit(row.c[C::LIMBUR]);
+      st.burst = limbur_burst(row.c[C::LIMBUR]);
     } else {
-      st.limit = srow[C::LIM];
-      st.duration = srow[C::DUR];
-      st.remaining = srow[C::REM];
-      st.stamp = srow[C::STM];
-      st.burst = srow[C::BUR];
+      st.limit = row.c[C::LIM];
+      st.burst = row.c[C::BUR];
     }
+    st.duration = row.c[C::DUR];
+    st.remaining = row.c[C::REM];
+    st.stamp = row.c[C::STM];
   }
 
-  const int32_t bhv = a.behavior[j];
-  LaneReq r;
-  r.hits = a.hits[j];
-  r.limit = a.limit[j];
-  r.duration = a.duration[j];
-  r.rate_num = a.rate_num[j];
-  r.eff_duration = a.eff_duration[j];
-  r.greg_expire = a.greg_expire[j];
-  r.burst = a.burst[j];
-  r.created = a.created_at[j];
-  r.greg = (bhv & B_GREG) != 0;
-  r.reset = (bhv & B_RESET) != 0;
-  r.drain = (bhv & B_DRAIN) != 0;
-
-  const int8_t algo = a.algo[j];
-  const bool is_leaky = algo == LEAKY;
+  const LaneReq& r = x.r;
+  const bool is_leaky = x.algo == LEAKY;
   const LaneResult o = is_leaky ? leaky_lane(r, st, exists) : token_lane(r, st, exists);
 
   // The new row, stored in place by a resident lane (one row per lane).
   const bool freed = !o.used;
-  if (resident) {
-    int64_t nrow[C::NCOLS];
-    nrow[C::KHI] = freed ? 0 : key_hi;
-    nrow[C::KLO] = freed ? 0 : key_lo;
-    nrow[C::META] = freed ? 0
-                          : (shl(now, 4) | ((int64_t)(o.status_state & 3) << 2) |
-                             ((int64_t)(algo & 1) << 1) | 1);
-    nrow[C::EXP] = o.expire_at;
-    nrow[C::INV] = (exists && !freed) ? st.invalid_at : 0;
+  if (x.resident) {
+    Row<LAYOUT> n;
+    n.c[C::KHI] = freed ? 0 : x.key_hi;
+    n.c[C::KLO] = freed ? 0 : x.key_lo;
+    n.c[C::META] = freed ? 0
+                         : (shl(now, 4) | ((int64_t)(o.status_state & 3) << 2) |
+                            ((int64_t)(x.algo & 1) << 1) | 1);
+    n.c[C::EXP] = o.expire_at;
+    n.c[C::INV] = (exists && !freed) ? st.invalid_at : 0;
     if constexpr (LAYOUT == LAYOUT_NARROW) {
-      nrow[C::LIMBUR] = pack_limbur(o.limit, o.burst);
+      n.c[C::LIMBUR] = pack_limbur(o.limit, o.burst);
     } else {
-      nrow[C::LIM] = o.limit;
-      nrow[C::BUR] = o.burst;
+      n.c[C::LIM] = o.limit;
+      n.c[C::BUR] = o.burst;
     }
-    nrow[C::DUR] = o.duration;
-    nrow[C::REM] = o.remaining;
-    nrow[C::STM] = o.stamp;
-    for (int c = 0; c < C::NCOLS; ++c) srow[c] = nrow[c];
+    n.c[C::DUR] = o.duration;
+    n.c[C::REM] = o.remaining;
+    n.c[C::STM] = o.stamp;
+    store_row<LAYOUT>(a.table + (x.base + way) * C::NCOLS, n);
   }
 
   const LaneOut out{o.resp_status, r.limit, o.resp_remaining, o.resp_reset,
-                    resident ? base + way : a.n_slots,
+                    x.resident ? x.base + way : a.n_slots,
                     displaced ? sp.khi : 0, displaced ? sp.klo : 0, freed};
 
   // Scalars: the wave's metrics over active lanes, and the WaveScan sums
@@ -542,7 +714,7 @@ GUBER_HD LaneOut lane_decide(const GuberWaveArgs& a, int j, bool active,
   scal[S_MISSES] += exists ? 0 : 1;
   scal[S_EVICTS] += evicts_live ? 1 : 0;
   scal[S_OVER] += o.over ? 1 : 0;
-  if (!resident) return out;
+  if (!x.resident) return out;
   const bool adm_active = !freed && o.limit > 0 && o.expire_at > now;
   const int64_t tokens = is_leaky ? (o.remaining >> ADMISSION_SHIFT) : o.remaining;
   scal[S_ADM_KEYS] += adm_active ? 1 : 0;
@@ -552,6 +724,53 @@ GUBER_HD LaneOut lane_decide(const GuberWaveArgs& a, int j, bool active,
   scal[S_CENSUS_LIVE] += freed ? 0 : 1;
   scal[S_CENSUS_WASTE] += (!freed && o.expire_at <= now) ? 1 : 0;
   return out;
+}
+
+// One lane of the wave by ONE thread (the scan kernel's body): the ways
+// folded in order with way_eval and combine over their probe columns
+// (KHI KLO META EXP INV), then the rest of the chosen row read only for
+// a live match, then lane_finish.
+template <int LAYOUT, bool PAGED>
+GUBER_HD LaneOut lane_decide(const GuberWaveArgs& a, int j, bool active,
+                             int64_t group, int64_t scal[N_SCAL]) {
+  using C = Cols<LAYOUT>;
+  if (!active) return padding_out(a);
+  const LaneCtx x = lane_ctx<PAGED>(a, j, true, active, group);
+  const int64_t* grp = a.table + x.base * C::NCOLS;
+  Cand c = no_cand();
+  Probe m{}, ins{};  // probe columns of the first live match, of the insert way
+  for (int w = 0; w < a.ways; ++w) {
+    const int64_t* row = grp + (int64_t)w * C::NCOLS;
+    const Probe p = x.resident ? Probe{row[C::KHI], row[C::KLO], row[C::META],
+                                       row[C::EXP], row[C::INV]}
+                               : Probe{};
+    const Cand e = way_eval(p, x.key_hi, x.key_lo, a.now, w);
+    const Cand n = combine(c, e);
+    if (c.match == NO_WAY && e.match != NO_WAY) m = p;
+    if (n.way == w) ins = p;
+    c = n;
+  }
+  const bool exists = c.match != NO_WAY;
+  const Probe sp = exists ? m : ins;
+  Row<LAYOUT> r{};
+  r.c[C::KHI] = sp.khi;
+  r.c[C::KLO] = sp.klo;
+  r.c[C::META] = sp.meta;
+  r.c[C::EXP] = sp.exp;
+  r.c[C::INV] = sp.inv;
+  if (exists) {
+    const int64_t* srow = grp + (int64_t)c.match * C::NCOLS;
+    if constexpr (LAYOUT == LAYOUT_NARROW) {
+      r.c[C::LIMBUR] = srow[C::LIMBUR];
+    } else {
+      r.c[C::LIM] = srow[C::LIM];
+      r.c[C::BUR] = srow[C::BUR];
+    }
+    r.c[C::DUR] = srow[C::DUR];
+    r.c[C::REM] = srow[C::REM];
+    r.c[C::STM] = srow[C::STM];
+  }
+  return lane_finish<LAYOUT>(a, x, c, r, scal);
 }
 
 // Stores a lane's outputs at j, all but `freed`, whose type the caller's
@@ -586,9 +805,9 @@ GUBER_HD void decide_lane(const GuberWaveArgs& a, int j,
 // On a paged mesh (XLATE) the logical group goes through the page map in
 // int32 first, and a lane whose page is not resident maps to the
 // sentinel n_shards * groups_per, which no shard owns: unlike a paged
-// single-table lane (lane_decide<..., true>) it is inactive everywhere.
-// A page index outside the map counts as not resident (the JAX gather
-// clamps it instead; no group the engine hashes lies outside the map).
+// single-table lane (lane_ctx<true>) it is inactive everywhere. A page
+// index outside the map counts as not resident (the JAX gather clamps it
+// instead; no group the engine hashes lies outside the map).
 struct ShardLane {
   bool owned;
   int32_t shard;
@@ -598,9 +817,11 @@ struct ShardLane {
 template <bool XLATE>
 GUBER_HD ShardLane shard_lane(const GuberShardArgs& s, int j) {
   const GuberWaveArgs& a = s.wave;
-  if (!a.active[j]) return ShardLane{false, 0, 0};
-  const int64_t n_groups = (int64_t)s.n_shards * s.groups_per;
+  // both read at once: neither load waits for the other
+  const bool active = a.active[j] != 0;
   int64_t g = a.group[j];
+  if (!active) return ShardLane{false, 0, 0};
+  const int64_t n_groups = (int64_t)s.n_shards * s.groups_per;
   if constexpr (XLATE) {
     const int64_t lp = floor_div(g, a.gpp);
     const int32_t pp =
@@ -615,23 +836,25 @@ GUBER_HD ShardLane shard_lane(const GuberShardArgs& s, int j) {
   return ShardLane{true, d, g - (int64_t)d * s.groups_per};
 }
 
-// One lane of a sharded wave: the owning shard's raw decide on its own
-// rows (lane_decide, flat, n_slots = n_local), and the psum over the
-// shard axis of what every shard answers for the lane. The D - 1 other
-// shards see the lane masked: zeros in every field but `slot`, where a
-// masked lane reports its shard's n_local. So the sum is the owner's
-// answer with slot + (D - 1) * n_local, and D * n_local for a lane no
-// shard owns; `freed` is stored as int32.
-template <int LAYOUT, bool XLATE>
-GUBER_HD void decide_lane_sharded(const GuberShardArgs& s, int j,
-                                  int64_t scal[N_SCAL]) {
-  const ShardLane L = shard_lane<XLATE>(s, j);
+// The owning shard's view of a sharded wave: its rows, n_slots = n_local
+// (raw_decide_flat on the shard's table). An unowned lane runs as a
+// padding lane of shard 0.
+template <int LAYOUT>
+GUBER_HD GuberWaveArgs shard_view(const GuberShardArgs& s, const ShardLane& L) {
   GuberWaveArgs w = s.wave;
   w.table += (int64_t)L.shard * s.n_local * Cols<LAYOUT>::NCOLS;
   w.n_slots = s.n_local;
-  LaneOut o = lane_decide<LAYOUT, false>(w, j, L.owned, L.group, scal);
+  return w;
+}
+
+// Stores lane j of a sharded wave as the psum over the shard axis gives
+// it. The D - 1 shards that do not own the lane see it masked: zeros in
+// every field but `slot`, where a masked lane reports its shard's
+// n_local. So the sum is the owner's answer with slot + (D - 1) *
+// n_local, and D * n_local for a lane no shard owns; `freed` is int32.
+GUBER_HD void store_lane_sharded(const GuberShardArgs& s, int j, LaneOut o) {
   o.slot = wadd(o.slot, wmul((int64_t)s.n_shards - 1, s.n_local));
-  store_lane(w, j, o);
+  store_lane(s.wave, j, o);
   s.out_freed[j] = o.freed ? 1 : 0;
 }
 
@@ -722,6 +945,64 @@ __device__ __forceinline__ void block_add_scalars(const int64_t s[N_SCAL],
       atomicAdd(reinterpret_cast<unsigned long long*>(scalars) + threadIdx.x,
                 sum);
   }
+}
+
+// The wave and sharded kernels' sums, with no memset before the launch:
+// a.scalars came zeroed from the launch before on the same stream (or
+// from the wrapper, for a stream's first launch), so the blocks add into
+// it (block_add_scalars), and block 0 zeroes a.next_scalars, the buffer
+// of the stream's next launch. A launch is one device operation, and
+// its sums cost only the adds, where a last-block reduction on a ticket
+// counter would add, after every other block, the last block's
+// dependent round trips (its sums' stores and fence, the ticket, the
+// read of every block's sums). The chain of
+// buffers belongs to one stream, so two waves on two streams never
+// share one; the wrapper (ops/cuda_decide.py) keeps it. Same calling
+// rule as block_add_scalars.
+template <int THREADS>
+__device__ __forceinline__ void wave_sums(const int64_t s[N_SCAL],
+                                          const GuberWaveArgs& a) {
+  if (blockIdx.x == 0 && threadIdx.x < N_SCAL) a.next_scalars[threadIdx.x] = 0;
+  block_add_scalars<THREADS>(s, a.scalars);
+}
+
+// One step of the team's butterfly: member t gets member t ^ off's
+// candidate (off < T, T a power of two dividing 32, so the partner is in
+// the same team). The 64-bit score goes as two 32-bit shuffles (the
+// long long overload). Every thread of the warp must call it.
+__device__ __forceinline__ Cand shfl_xor_cand(const Cand& c, int off) {
+  Cand o;
+  o.score = (int64_t)__shfl_xor_sync(0xffffffffu, (long long)c.score, off);
+  o.way = __shfl_xor_sync(0xffffffffu, c.way, off);
+  o.match = __shfl_xor_sync(0xffffffffu, c.match, off);
+  return o;
+}
+
+// The team's candidates reduced, in every member: combine with the
+// partner at off = T/2 .. 1 (team_reduce_emulated is the host's copy).
+__device__ __forceinline__ Cand team_reduce(Cand c, int T) {
+  for (int off = T >> 1; off > 0; off >>= 1) c = combine(c, shfl_xor_cand(c, off));
+  return c;
+}
+
+// Member t of lane j's team (T threads, consecutive lanes of one warp):
+// the lane's loads (lane_ctx) and the member's rows (member_eval), the
+// team's selection, then the member that holds the chosen row finishes
+// the lane from its registers. Returns true, with the lane's outputs in
+// `out` and its sums added to `scal`, in that member only. Every member
+// of every team of the warp must call it (no early return before the
+// shuffles): lanes past the batch with in_batch = active = false.
+template <int LAYOUT, bool PAGED>
+__device__ __forceinline__ bool team_decide(const GuberWaveArgs& a, int j,
+                                            bool in_batch, bool active,
+                                            int64_t group, int t, int T,
+                                            int64_t scal[N_SCAL], LaneOut& out) {
+  const LaneCtx x = lane_ctx<PAGED>(a, j, in_batch, active, group);
+  Row<LAYOUT> row;
+  const Cand c = team_reduce(member_eval<LAYOUT>(a, x, t, row), T);
+  if (t != team_owner(c, T)) return false;
+  out = lane_finish<LAYOUT>(a, x, c, row, scal);
+  return true;
 }
 #endif  // __CUDACC__
 

@@ -12,26 +12,30 @@
 // ops/fused.py::sharded_plain (the masked wave per shard, then the
 // sum); the wrapper is ops/cuda_decide.py::decide_sharded.
 //
-// Design. One launch per wave for all the shards on the card: one thread
-// per lane, blocks of 128, a grid of ceil(B/128). On one card the D
-// shards are D row ranges of one allocation, so a lane's owner is a
-// function of its group: the thread finds it (decide_lane.cuh
-// shard_lane, the ownership prologue), runs the shared lane body on the
-// owner's rows with the shard-local group (decide_lane_sharded) and
-// stores what the psum would give: the owner's answer, with slot +
-// (D - 1) * n_local for the D - 1 shards that report a masked lane's
-// slot as their n_local. A grid of D x ceil(B/128) that ran every lane
-// once per shard would store D copies of every output (D - 1 of them
-// masked zeros) and need a second pass to sum them; here the psum's
-// arithmetic is the epilogue and nothing else is launched. The 9 scalars
-// are reduced per block (block_add_scalars) as in decide_wave.cu: every
-// shard's sums add up, as the psum adds them.
-//
 // Bound. The same bytes as one flat wave (decide_wave.cu), with freed
 // stored as int32: ~0.6 MB at B = 1024, ~0.2 us at the H100 SXM's 3.35
 // TB/s (NVIDIA data sheet, not a measurement). Like the flat wave it is
-// bound by launch and memory latency (the probe -> row -> store chain of
-// each thread), not by bytes.
+// bound by latency: the lane's chain (group and page map -> rows ->
+// store), the launch and the sums across blocks, not by bytes.
+//
+// Design. One launch per wave for all the shards on the card, with the
+// wave kernel's team of T threads per lane (decide_wave.cu: member t
+// loads way t's whole row in one round, a shuffle butterfly picks the
+// way, the member holding the chosen row finishes the lane from its
+// registers; the 9 sums are added into a buffer the stream's launch
+// before zeroed, no memset). On one card
+// the D shards are D row ranges of one allocation, so a lane's owner is
+// a function of its group: every member of the team runs the ownership
+// prologue (decide_lane.cuh shard_lane; the same loads, coalesced, and
+// the same answer in each) before its rows, runs the team body on the
+// owner's rows with the shard-local group (shard_view), and the owning
+// member stores what the psum would give (store_lane_sharded): the
+// owner's answer, with slot + (D - 1) * n_local for the D - 1 shards
+// that report a masked lane's slot as their n_local, and freed as int32.
+// A grid that ran every lane once per shard would store D copies of
+// every output and need a second pass to sum them; here the psum's
+// arithmetic is the epilogue and nothing else is launched. Every shard's
+// sums add up in the one reduction, as the psum adds them.
 
 #include <cuda_runtime.h>
 
@@ -39,40 +43,48 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = guber::TEAM_THREADS;
 
 template <int LAYOUT, bool XLATE>
 __global__ void __launch_bounds__(kThreads)
     decide_sharded_kernel(const GuberShardArgs a) {
-  const int j = blockIdx.x * kThreads + threadIdx.x;
+  const int T = guber::team_size(a.wave.ways);
+  const int j = blockIdx.x * (kThreads / T) + threadIdx.x / T;
+  const int t = threadIdx.x & (T - 1);
   int64_t s[guber::N_SCAL];
 #pragma unroll
   for (int k = 0; k < guber::N_SCAL; ++k) s[k] = 0;
-  if (j < a.wave.batch) guber::decide_lane_sharded<LAYOUT, XLATE>(a, j, s);
-  guber::block_add_scalars<kThreads>(s, a.wave.scalars);
+  const bool in_batch = j < a.wave.batch;
+  const guber::ShardLane L =
+      in_batch ? guber::shard_lane<XLATE>(a, j) : guber::ShardLane{false, 0, 0};
+  const GuberWaveArgs w = guber::shard_view<LAYOUT>(a, L);
+  guber::LaneOut o;
+  if (guber::team_decide<LAYOUT, false>(w, j, in_batch, L.owned, L.group, t, T, s, o) &&
+      in_batch)
+    guber::store_lane_sharded(a, j, o);
+  guber::wave_sums<kThreads>(s, a.wave);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Zero the scalars and launch one sharded wave of configuration (layout,
-// xlate) on `stream` (PyTorch's current stream). layout is
-// guber::LAYOUT_FUSED or LAYOUT_NARROW; xlate 1 for a paged mesh (the
-// page map translates groups first), 0 for a flat one. Returns the
-// cudaError_t of the memset or of the launch; 0 means launched. Does not
-// synchronise.
+// Launch one sharded wave of configuration (layout, xlate) on `stream`
+// (PyTorch's current stream): the kernel alone, which adds the 9 sums
+// into args->wave.scalars (zero) and zeroes args->wave.next_scalars, as
+// guber_decide_wave does. layout is guber::LAYOUT_FUSED or LAYOUT_NARROW;
+// xlate 1 for a paged mesh (the page map translates groups first), 0 for
+// a flat one. Returns the cudaError_t of the launch; 0 means launched.
+// Does not synchronise.
 int guber_decide_sharded(const GuberShardArgs* args, int layout, int xlate,
                          void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((layout != guber::LAYOUT_FUSED && layout != guber::LAYOUT_NARROW) ||
       (xlate != 0 && xlate != 1) || args->n_shards < 1 ||
-      args->groups_per < 1)
+      args->groups_per < 1 || args->wave.batch < 1 || args->wave.ways < 1 ||
+      args->wave.next_scalars == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaMemsetAsync(args->wave.scalars, 0,
-                                    guber::N_SCAL * sizeof(int64_t), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (args->wave.batch + kThreads - 1) / kThreads;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = guber::team_blocks(args->wave.batch, args->wave.ways);
   guber::dispatch(layout, xlate, [&](auto L, auto X) {
     decide_sharded_kernel<decltype(L)::value, decltype(X)::value>
         <<<blocks, kThreads, 0, st>>>(*args);

@@ -11,7 +11,12 @@ narrow layouts. The wave and scan kernels replace that module's
 `_make_kernel` (one wave, or a `lax.scan` of waves) on a flat table or
 a paged one; the sharded kernel replaces the mesh tier's per-shard
 `raw_decide_flat` and the psum over the shards, on a flat mesh table or
-a paged mesh's frames. See the sources for their design and bound.
+a paged mesh's frames. See the sources for their design and bound:
+the wave and sharded kernels run a team of threads per lane (the ways
+rounded up to a power of two, at most 32) and add their 9 sums into a
+buffer that the launch before on the same stream zeroed (one device
+operation per wave; the wrapper keeps each stream's chain of buffers,
+`_launch_summed`); the scan runs a thread per lane.
 
 Dispatch is by the table's device and nothing else:
 
@@ -107,7 +112,8 @@ class _WaveArgs(ctypes.Structure):
         ("active", _P), ("out_status", _P), ("out_limit", _P),
         ("out_remaining", _P), ("out_reset_time", _P), ("out_slot", _P),
         ("out_evicted_hi", _P), ("out_evicted_lo", _P), ("out_freed", _P),
-        ("scalars", _P), ("page_map", _P), ("n_slots", ctypes.c_int64),
+        ("scalars", _P), ("page_map", _P), ("next_scalars", _P),
+        ("n_slots", ctypes.c_int64),
         ("now", ctypes.c_int64), ("ways", ctypes.c_int32),
         ("batch", ctypes.c_int32), ("gpp", ctypes.c_int32),
         ("n_log_pages", ctypes.c_int32),
@@ -201,16 +207,18 @@ def _check_scan(data, batches: RequestBatch, nows, ways: int, layout: str,
     return steps, b, nows.to(data.device).contiguous()
 
 
-def _outputs(shape, dev, freed_dtype=torch.bool) -> Tuple[DecideOutput, WaveScan, list]:
+def _outputs(shape, dev, freed_dtype=torch.bool, scal=None):
     """Kernel outputs for lanes of `shape`, (B,) or (T, B): the lane
-    fields, and the 9 sums as (9,) or (T, 9) with the DecideOutput and
-    WaveScan sums viewed out of it; plus the pointers in kernel order.
-    `freed` is bool, or int32 for a sharded wave (the psum's type)."""
+    fields, and the 9 sums as (9,) or (T, 9) (`scal` if given, else
+    new) with the DecideOutput and WaveScan sums viewed out of it; plus
+    the pointers in kernel order. `freed` is bool, or int32 for a
+    sharded wave (the psum's type)."""
     i64 = dict(dtype=torch.int64, device=dev)
     limit, remaining, reset_time, slot, ehi, elo = (torch.empty(shape, **i64) for _ in range(6))
     status = torch.empty(shape, dtype=torch.int8, device=dev)
     freed = torch.empty(shape, dtype=freed_dtype, device=dev)
-    scal = torch.empty(tuple(shape[:-1]) + (N_SCAL,), **i64)
+    if scal is None:
+        scal = torch.empty(tuple(shape[:-1]) + (N_SCAL,), **i64)
     out = DecideOutput(
         status=status, limit=limit, remaining=remaining, reset_time=reset_time,
         slot=slot, evicted_hi=ehi, evicted_lo=elo, freed=freed,
@@ -222,12 +230,16 @@ def _outputs(shape, dev, freed_dtype=torch.bool) -> Tuple[DecideOutput, WaveScan
     return out, scan, ptrs
 
 
-def _wave_args(data, batch, now, ways, b, ptrs, page_map, gpp) -> _WaveArgs:
+def _wave_args(data, batch, now, ways, b, ptrs, page_map, gpp, next_scal=None) -> _WaveArgs:
+    """The wave's arguments: `ptrs` as `_outputs` gives them, and the
+    (9,) sums the launch zeroes for the stream's next one (the wave and
+    sharded kernels only)."""
     cols = [getattr(batch, f).data_ptr() for f in _BATCH_DTYPES]
     paged = page_map is not None
     return _WaveArgs(
         data.data_ptr(), *cols, *(t.data_ptr() if t is not None else None for t in ptrs),
         page_map.data_ptr() if paged else None,
+        next_scal.data_ptr() if next_scal is not None else None,
         data.shape[0], int(now), ways, b,
         gpp if paged else 0, page_map.shape[0] if paged else 0,
     )
@@ -267,6 +279,44 @@ def _count(name: str) -> None:
     _tls.launches = thread_launches() + 1
 
 
+# (device index, stream handle) -> the zeroed (9,) sums of the next wave
+# or sharded launch on that stream
+_SUMS = {}
+_sums_lock = threading.Lock()
+
+
+def _launch_summed(dev, shape, freed_dtype, launch):
+    """One wave or sharded launch on the current stream of `dev` with
+    its sums chained: the launch adds its 9 sums into the stream's zeroed
+    buffer (made zero here for the stream's first launch) and zeroes a
+    new one, which becomes the stream's buffer for its next launch (the
+    kernel does both: no memset, one device operation per wave). One
+    lock holds the chain from the buffer's taking to the launch, so two
+    host threads on one stream never add into one buffer, and each
+    stream has its own chain. `launch(stream, ptrs, next_scal)` returns
+    the C call's code; returns (out, scan, code)."""
+    with torch.cuda.device(dev), _sums_lock:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        key = (dev.index, stream)
+        scal = _SUMS.get(key)
+        if scal is None:
+            scal = torch.zeros(N_SCAL, dtype=torch.int64, device=dev)
+        nxt = torch.empty(N_SCAL, dtype=torch.int64, device=dev)
+        out, scan, ptrs = _outputs(shape, dev, freed_dtype, scal)
+        rc = launch(stream, ptrs, nxt)
+        # a refused launch ran nothing: the stream keeps its zeroed buffer
+        _SUMS[key] = nxt if rc == 0 else scal
+    return out, scan, rc
+
+
+def _check_vector_rows(data, layout: str) -> None:
+    """The wave and sharded kernels read and write a fused row as five
+    16-byte vectors: the table must start on a 16-byte boundary (every
+    torch allocation does; an offset view may not)."""
+    if layout == "fused" and data.data_ptr() % 16:
+        raise ValueError("a fused table on the card must start at a 16-byte boundary")
+
+
 def _wave(data, page_map, batch, now, *, layout, ways, gpp):
     """One wave of configuration (layout, paged = page_map given) over
     the rows `data`, in place: (out, scan)."""
@@ -279,17 +329,20 @@ def _wave(data, page_map, batch, now, *, layout, ways, gpp):
             _CODECS[layout], data, page_map, batch, now, ways=ways, gpp=gpp
         )
     lib = _decide_lib()
-    out, scan, ptrs = _outputs((b,), dev)
+    _check_vector_rows(data, layout)
     if b == 0:
-        ptrs[-1].zero_()
+        out, scan, ptrs = _outputs((b,), dev)
+        ptrs[8].zero_()
         return out, scan
-    args = _wave_args(data, batch, now, ways, b, ptrs, page_map, gpp)
     paged = page_map is not None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.guber_decide_wave(
+
+    def launch(stream, ptrs, nxt):
+        args = _wave_args(data, batch, now, ways, b, ptrs, page_map, gpp, nxt)
+        return lib.guber_decide_wave(
             ctypes.byref(args), _LAYOUT_CODE[layout], int(paged), stream
         )
+
+    out, scan, rc = _launch_summed(dev, (b,), torch.bool, launch)
     if rc != 0:
         msg = lib.guber_cuda_error_string(rc).decode()
         raise RuntimeError(
@@ -381,12 +434,14 @@ def decide_lane_code_on_host(
     table, batch: RequestBatch, now: int, *, ways: int = DEFAULT_WAYS,
     layout: str = "fused", page_map: Optional[torch.Tensor] = None, gpp: int = 0,
 ) -> Tuple[object, DecideOutput, WaveScan]:
-    """Tests only: the kernel's per-lane C++ (csrc/decide_lane.cuh)
+    """Tests only: the wave kernel's lane code (csrc/decide_lane.cuh)
     built by g++ and run lane after lane on CPU tensors, in the
-    configuration (layout, paged = `page_map` given), so the CPU test
-    suite checks the kernel's own arithmetic against the plain version.
-    `table` is the layout table (for a paged table, its frames). No
-    serving path calls this."""
+    configuration (layout, paged = `page_map` given), each lane's team
+    of threads emulated (its members' candidates and rows,
+    the butterfly's combine calls in the device's order, the owner's
+    finish), so the CPU test suite checks the kernel's own selection and
+    arithmetic against the plain version. `table` is the layout table
+    (for a paged table, its frames). No serving path calls this."""
     data = table.data
     if data.device.type != "cpu":
         raise ValueError("decide_lane_code_on_host takes CPU tensors")
@@ -397,8 +452,9 @@ def decide_lane_code_on_host(
     fn.restype = ctypes.c_int
     out, scan, ptrs = _outputs((b,), data.device)
     args = _wave_args(data, batch, now, ways, b, ptrs, page_map, gpp)
-    if fn(ctypes.byref(args), _LAYOUT_CODE[layout], int(page_map is not None)) != 0:
-        raise RuntimeError("decide_lane_host failed")
+    rc = fn(ctypes.byref(args), _LAYOUT_CODE[layout], int(page_map is not None))
+    if rc != 0:
+        raise RuntimeError(f"decide_lane_host failed ({rc}: 2 is a lane whose team has no single owner)")
     return table, out, scan
 
 
@@ -470,10 +526,12 @@ def _check_shards(data, n_shards: int, ways: int) -> int:
     return gp
 
 
-def _shard_args(data, batch, now, ways, b, ptrs, page_map, gpp, n_shards, gp) -> _ShardArgs:
+def _shard_args(data, batch, now, ways, b, ptrs, page_map, gpp, n_shards, gp,
+                next_scal=None) -> _ShardArgs:
     """The sharded wave's arguments: the wave's, whose bool `freed`
     pointer is left null, and the int32 `freed` and the shard geometry."""
-    wave = _wave_args(data, batch, now, ways, b, ptrs[:7] + [None, ptrs[8]], page_map, gpp)
+    wave = _wave_args(data, batch, now, ways, b, ptrs[:7] + [None, ptrs[8]], page_map, gpp,
+                      next_scal)
     return _ShardArgs(wave, ptrs[7].data_ptr(), gp * ways, n_shards, gp)
 
 
@@ -502,17 +560,20 @@ def decide_sharded(
             n_shards=n_shards, gpp=gpp,
         )
     lib = _decide_lib()
-    out, scan, ptrs = _outputs((b,), dev, torch.int32)
+    _check_vector_rows(data, layout)
     if b == 0:
-        ptrs[-1].zero_()
+        out, scan, ptrs = _outputs((b,), dev, torch.int32)
+        ptrs[8].zero_()
         return out, scan
-    args = _shard_args(data, batch, now, ways, b, ptrs, page_map, gpp, n_shards, gp)
     name = sharded_name(layout)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.guber_decide_sharded(
+
+    def launch(stream, ptrs, nxt):
+        args = _shard_args(data, batch, now, ways, b, ptrs, page_map, gpp, n_shards, gp, nxt)
+        return lib.guber_decide_sharded(
             ctypes.byref(args), _LAYOUT_CODE[layout], int(page_map is not None), stream
         )
+
+    out, scan, rc = _launch_summed(dev, (b,), torch.int32, launch)
     if rc != 0:
         msg = lib.guber_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
@@ -524,10 +585,12 @@ def decide_sharded_lane_code_on_host(
     data, page_map, batch: RequestBatch, now: int, *, layout: str, ways: int,
     n_shards: int, gpp: int = 0,
 ) -> Tuple[DecideOutput, WaveScan]:
-    """Tests only: the sharded kernel's ownership prologue, per-lane C++
-    and psum epilogue (`decide_lane_sharded`, csrc/decide_lane.cuh) built
-    by g++ and run lane after lane on CPU tensors. Same arguments as
-    `decide_sharded`. No serving path calls this."""
+    """Tests only: the sharded kernel's ownership prologue, lane code
+    (the team emulated, as `decide_lane_code_on_host` runs it) and psum
+    epilogue (`shard_lane`, `shard_view`, `store_lane_sharded`,
+    csrc/decide_lane.cuh) built by g++ and run lane after lane on CPU
+    tensors. Same arguments as `decide_sharded`. No serving path calls
+    this."""
     if data.device.type != "cpu":
         raise ValueError("decide_sharded_lane_code_on_host takes CPU tensors")
     b = _check(data, batch, ways, layout, page_map, gpp)
@@ -538,6 +601,27 @@ def decide_sharded_lane_code_on_host(
     fn.restype = ctypes.c_int
     out, scan, ptrs = _outputs((b,), data.device, torch.int32)
     args = _shard_args(data, batch, now, ways, b, ptrs, page_map, gpp, n_shards, gp)
-    if fn(ctypes.byref(args), _LAYOUT_CODE[layout], int(page_map is not None)) != 0:
-        raise RuntimeError("decide_lane_host sharded wave failed")
+    rc = fn(ctypes.byref(args), _LAYOUT_CODE[layout], int(page_map is not None))
+    if rc != 0:
+        raise RuntimeError(f"decide_lane_host sharded wave failed ({rc}: 2 is a lane whose team has no single owner)")
     return out, scan
+
+
+def select_on_host(scores, live) -> Tuple[Tuple[int, int, int], Tuple[int, int, int]]:
+    """Tests only: the way selection over `len(scores)` candidates
+    (int64 insertion scores, bool live matches) as the scan's serial
+    fold and as the wave kernel's team (member folds, then the emulated
+    butterfly) compute it, each as (score, insert way, first live way
+    or 2^31 - 1), from the g++ build of csrc/decide_lane.cuh."""
+    scores = np.ascontiguousarray(scores, dtype=np.int64)
+    live = np.ascontiguousarray(live, dtype=np.uint8)
+    if scores.shape != live.shape or scores.ndim != 1 or not 1 <= scores.size < 1 << 31:
+        raise ValueError("scores and live must be (W,), W >= 1")
+    fn = _build.load("decide_lane_host").guber_select_host
+    fn.argtypes = [_P, _P, ctypes.c_int, _P]
+    fn.restype = ctypes.c_int
+    out = np.zeros(6, np.int64)
+    if fn(scores.ctypes.data, live.ctypes.data, scores.size, out.ctypes.data) != 0:
+        raise RuntimeError("the team's members disagree on the selection")
+    return tuple(int(v) for v in out[:3]), tuple(int(v) for v in out[3:])
+

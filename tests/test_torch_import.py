@@ -76,10 +76,11 @@ def test_source_imports_no_jax_or_reference_package(path):
     "gubernator_tpu_torch.parallel.mesh",
     "gubernator_tpu_torch.runtime.topology",
     "gubernator_tpu_torch.runtime.ici_engine",
+    "gubernator_tpu_torch.ablate",
 ])
 def test_slice_modules_are_checked(module):
     """The narrow layout, the paged table, the pager, the bench, the
-    scan and sharded wrappers, the mesh, the topologies and the mesh
-    engine are among the modules imported above with jax and
-    gubernator_tpu blocked."""
+    scan and sharded wrappers, the mesh, the topologies, the mesh
+    engine and the kernel ablation tool are among the modules imported
+    above with jax and gubernator_tpu blocked."""
     assert module in _port_modules()
