@@ -3,12 +3,13 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the port's native code from the checkout (the CUDA decide-wave
-and decide-scan kernels, four configurations each, and the sharded
-decide-wave kernel, two configurations, one nvcc per source, all built
-for sm_90a and linked into one library, and the key hasher with g++,
-every compiler started at once; the build line gives each kernel's
-registers and spills), then drives it at two sizes and prints one JSON
-line per phase:
+kernel, four configurations, the decide-scan kernel, four
+configurations at two block sizes, and the sharded decide-wave kernel,
+two configurations, one nvcc per source, all built for sm_90a and
+linked into one library, and the key hasher with g++, every compiler
+started at once; the build line gives each kernel's registers, spills
+and static shared memory), then drives it at two sizes and prints one
+JSON line per phase:
 
 - 1M (BASELINE.json config 3, "1M-key Zipfian"): a flat table of 2^18
   groups x 8 ways holding 1,000,000 live keys; kernel configurations
@@ -45,27 +46,36 @@ Phases, for each size:
    bound, which counts the live matches each timed launch found; and a
    B sweep, events and profiler time per wave at B = 128, 1024 and 4096.
 3. scan_kernel: the scan kernel (`decide_scan.cu`, T = 32 waves in one
-   cooperative launch) of each configuration of the size against its
-   plain version (`scan_plain`) and against 32 successive launches of
-   the wave kernel, each on its own copy of the table: 32 steps of 4,096
-   lanes drawn as the bench draws them (the Zipf head's groups recur in
-   consecutive steps), bit-exact on every (T, B) field, the (T,) sums,
-   the whole physical table and the page map; exactly one launch per
-   scan. The steps carry the bench's `kernel10m` (BASELINE config 5)
-   behavior mix, RESET_REMAINING and DRAIN_OVER_LIMIT beside plain
-   lanes, so every behavior the bench runs is held against the plain
-   version on the card. Flat on the 1M image; paged on the 10M frames
-   with the scrambled map, so sentinel lanes occur.
+   cooperative launch, a team of threads per lane in a persistent grid,
+   each step's batch columns and page words staged before its barrier)
+   of each configuration of the size against its plain version
+   (`scan_plain`) and against 32 successive launches of the wave kernel,
+   each on its own copy of the table: 32 steps of 4,096 lanes drawn as
+   the bench draws them (the Zipf head's groups recur in consecutive
+   steps), bit-exact on every (T, B) field, the (T,) sums, the whole
+   physical table and the page map; exactly one launch per scan. The
+   steps carry the bench's `kernel10m` (BASELINE config 5) behavior mix,
+   RESET_REMAINING and DRAIN_OVER_LIMIT beside plain lanes, so every
+   behavior the bench runs is held against the plain version on the
+   card. Flat on the 1M image; paged on the 10M frames with the
+   scrambled map, so sentinel lanes occur. Then four more scans, each
+   on its own table (paged: 3/4 of its pages resident, scrambled) and
+   held the same way (`scan_team_checks`): a tie-heavy scan (8 ways), a
+   scan of a 4-way table (a team of 4), a 32-way scan at B = 4,096 whose
+   items outnumber the co-resident blocks, so the blocks stride
+   (checked with the launch's own grid, `scan_grid`), and a scan of one
+   step.
 4. scan_times: the scan's device ms per scan and per step (CUDA events,
    L2 flushed, device held busy while the host enqueues; and
-   torch.profiler's kernel time), the same 32 waves as 32 wave-kernel
-   launches (events, and the profiler's summed kernel time), the plain
-   version's ms and the byte bound summed over the steps. Paged scans
-   are timed on groups of resident pages, as the bench runs them. Then
-   team_vs_scan: the wave kernel (a team of threads per lane) against
-   the scan kernel (still a thread per lane) at B = 4096 in this run,
-   profiler time per wave (the B sweep's, and on the scan's own steps)
-   beside the scan's per step.
+   torch.profiler's kernel time), a profiler trace that shows one scan
+   to be one device operation (the kernel: no memset, no other kernel),
+   the same 32 waves as 32 wave-kernel launches (events, and the
+   profiler's summed kernel time), the plain version's ms and the byte
+   bound summed over the steps. Paged scans are timed on groups of
+   resident pages, as the bench runs them. Then team_vs_scan: the two
+   team kernels in this run at B = 4096, the wave kernel's profiler time
+   per launch (the B sweep's fresh waves, and on the scan's own steps)
+   beside the scan kernel's per step.
 5. main_path: `V1Service.get_rate_limits` over a CUDA `DeviceEngine` in
    each configuration, 8 calls of 1,000 Zipf(1.1) items, against one CPU
    engine (flat, fused: the plain version) on the same calls and frozen
@@ -533,12 +543,15 @@ LIBS = ["decide_cuda", "guberhash"]
 
 def _ptxas_kernels(log: str) -> dict:
     """{"decide_wave_kernel<layout,paged>": {registers, spill_stores,
-    spill_loads}} from nvcc's -Xptxas -v report."""
+    spill_loads, static_smem_bytes}} from nvcc's -Xptxas -v report (the
+    scan kernel's keys also carry its block size)."""
     out, cur = {}, None
     for ln in log.splitlines():
-        m = re.search(r"entry function '.*\d(decide_[a-z]+_kernel)ILi(\d+)ELb(\d)E", ln)
+        m = re.search(r"entry function '.*\d(decide_[a-z]+_kernel)ILi(\d+)ELb(\d)E"
+                      r"(?:Li(\d+)E)?", ln)
         if m:
-            cur = out.setdefault(f"{m.group(1)}<{m.group(2)},{m.group(3)}>", {})
+            args = ",".join(g for g in m.groups()[1:] if g is not None)
+            cur = out.setdefault(f"{m.group(1)}<{args}>", {})
             continue
         if cur is None:
             continue
@@ -548,6 +561,9 @@ def _ptxas_kernels(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", ln)
         if m:
             cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", ln)
+        if m:
+            cur["static_smem_bytes"] = int(m.group(1))
     return out
 
 
@@ -703,6 +719,36 @@ def _median_ms(fn, reps, flush, hold_cycles=0):
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+# Fills of a marker tensor around the operations a trace counts: on the
+# card the profiler has been seen to miss up to four device operations
+# at the start of a trace, so the fills before them are the ones it may
+# miss (and the fills after them, any missed at its end)
+MARKER_FILLS = 8
+
+
+def _device_ops(fn, reps):
+    """Names of the device operations (kernels, memsets, copies), in
+    time order, that torch.profiler (CUPTI) records while `fn` runs
+    `reps` times, between MARKER_FILLS fills of a marker tensor (then a
+    synchronise and 50 ms) before them and MARKER_FILLS after them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    marker = torch.empty(1, device=DEVICE)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for k in range(MARKER_FILLS):
+            marker.fill_(k)
+        sync()
+        time.sleep(0.05)
+        for _ in range(reps):
+            fn()
+        for k in range(MARKER_FILLS):
+            marker.fill_(k)
+        sync()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e.name for e in sorted(ops, key=lambda e: e.time_range.start)]
 
 
 def _profiled_device_ms(fn, reps, kernel="decide_wave_kernel"):
@@ -863,25 +909,128 @@ def scan_steps(rng, size: Size, now: int, page_map=None):
     return hosts, nows
 
 
-def run_scan(table, db, nows, layout: str, gpp: int):
+def run_scan(table, db, nows, layout: str, gpp: int, ways: int = WAYS):
     if isinstance(table, PagedTable):
-        _, out = cuda_decide.decide_scan_paged(table, db, nows, layout=layout, ways=WAYS, gpp=gpp)
+        _, out = cuda_decide.decide_scan_paged(table, db, nows, layout=layout, ways=ways, gpp=gpp)
     else:
-        _, out = cuda_decide.decide_scan_flat(table, db, nows, layout=layout, ways=WAYS)
+        _, out = cuda_decide.decide_scan_flat(table, db, nows, layout=layout, ways=ways)
     return out
 
 
-def run_scan_plain(table, db, nows, layout: str, gpp: int):
+def run_scan_plain(table, db, nows, layout: str, gpp: int, ways: int = WAYS):
     pm = table.page_map if isinstance(table, PagedTable) else None
-    return fused.scan_plain(CODEC[layout], _rows(table), pm, db, nows, ways=WAYS, gpp=gpp)
+    return fused.scan_plain(CODEC[layout], _rows(table), pm, db, nows, ways=ways, gpp=gpp)
 
 
-def run_waves(table, db, nows: np.ndarray, layout: str, gpp: int):
+def run_waves(table, db, nows: np.ndarray, layout: str, gpp: int, ways: int = WAYS):
     """The scan's steps as successive launches of the wave kernel; the
     outputs stacked as the scan stacks them."""
-    outs = [run_kernel(table, RequestBatch(*(c[t] for c in db)), int(nows[t]), layout, gpp)[0]
+    outs = [run_kernel(table, RequestBatch(*(c[t] for c in db)), int(nows[t]), layout, gpp,
+                       ways=ways)[0]
             for t in range(len(nows))]
     return type(outs[0])(*(torch.stack(f) for f in zip(*outs)))
+
+
+def _copy_table(table):
+    """A device copy of a kernel table (flat or paged)."""
+    if isinstance(table, PagedTable):
+        return PagedTable(type(table.data)(table.data.data.clone()), table.page_map.clone())
+    return type(table)(table.data.clone())
+
+
+def _scan_against(name, kt, db, nows, layout, gpp, ways=WAYS):
+    """One scan of the kernel on `kt` against the plain version and
+    against T wave launches, each on its own copy of `kt` made first:
+    every (T, B) field and the (T,) sums bit-exact, the three tables
+    equal after, the page map unchanged. Returns (kernel output,
+    largest difference, scan launches, wave launches)."""
+    paged = isinstance(kt, PagedTable)
+    pt, wt = _copy_table(kt), _copy_table(kt)
+    pm0 = kt.page_map.clone() if paged else None
+    wave_name = cuda_decide.config_name(layout, paged)
+    nows_d = torch.from_numpy(np.asarray(nows, np.int64)).to(DEVICE)
+    sync()
+    s0, w0 = cuda_decide.CONFIG_LAUNCHES[name], cuda_decide.CONFIG_LAUNCHES[wave_name]
+    ko = run_scan(kt, db, nows_d, layout, gpp, ways)
+    sync()
+    scan_launches = cuda_decide.CONFIG_LAUNCHES[name] - s0
+    po = run_scan_plain(pt, db, nows_d, layout, gpp, ways)
+    wo = run_waves(wt, db, np.asarray(nows), layout, gpp, ways)
+    sync()
+    wave_launches = cuda_decide.CONFIG_LAUNCHES[wave_name] - w0
+    err = max(_out_err(ko, po), _out_err(ko, wo, f"{len(nows)} {wave_name} launches"))
+    for ref, what in ((pt, "the plain version"), (wt, f"{len(nows)} wave launches")):
+        if not torch.equal(_rows(kt), _rows(ref)):
+            rows = int((_rows(kt) != _rows(ref)).any(dim=1).sum())
+            raise AssertionError(f"{name}: table differs from {what} in {rows} rows")
+        if paged and not torch.equal(ref.page_map, pm0):
+            raise AssertionError(f"{name}: the page map changed ({what})")
+    if paged and not torch.equal(kt.page_map, pm0):
+        raise AssertionError(f"{name}: the page map changed")
+    if scan_launches != 1 or wave_launches != len(nows):
+        raise AssertionError(f"{name}: {scan_launches} scan launches, {wave_launches} wave launches")
+    return ko, err, scan_launches, wave_launches
+
+
+# Steps and lanes of the scan kernel's team checks; the 32-way scan
+# runs SCAN_B lanes on STRIDE_GROUPS groups
+TEAM_SCAN_T = 8
+STRIDE_WAYS = 32
+STRIDE_GROUPS = 8192
+
+
+def scan_team_checks(rng, layout: str, paged: bool) -> dict:
+    """The scan kernel's team and its grid on the card, each scan against
+    the plain version and against T wave launches (`_scan_against`), on
+    tables of their own (paged: a scrambled map of 3/4 of the pages):
+    - tie_scan: TEAM_SCAN_T steps of B lanes on the tie-heavy image
+      (`tie_image`, 8 ways; 1,024 of its 4,096 groups per step, so
+      consecutive steps share about a quarter of their groups);
+    - ways4_scan: TEAM_SCAN_T steps of a 4-way table (a team of 4);
+    - ways32_scan: TEAM_SCAN_T steps of SCAN_B lanes on a 32-way table of
+      STRIDE_GROUPS groups (a team of 32): its items outnumber the
+      co-resident blocks, so each block strides over several items per
+      step (checked: the grid is smaller than the step's items);
+    - t1_scan: a scan of one step of SCAN_B lanes (8 ways): the zeroing
+      and the adds of the sums around the one barrier.
+    Returns each scan's counts."""
+    name = cuda_decide.config_name(layout, paged, scan=True)
+    res = {}
+    for what, ways, groups, lanes, steps in (
+            ("tie_scan", WAYS, TEAM_GROUPS, B, TEAM_SCAN_T),
+            ("ways4_scan", 4, TEAM_GROUPS, B, TEAM_SCAN_T),
+            ("ways32_scan", STRIDE_WAYS, STRIDE_GROUPS, SCAN_B, TEAM_SCAN_T),
+            ("t1_scan", WAYS, STRIDE_GROUPS, SCAN_B, 1)):
+        nlp = groups // TEAM_GPP
+        size = Size(what, groups, 2 * groups, TEAM_GPP if paged else 0,
+                    nlp * 3 // 4 if paged else 0, ())
+        if what == "tie_scan":
+            image, tie_keys = tie_image(rng, NOW)
+        else:
+            image = live_image(rng, size, ways)
+        nows = NOW + np.cumsum(rng.choice([0, 1, 250, 2000], steps)).astype(np.int64)
+        hosts = [tie_wave(rng, tie_keys, int(now)) if what == "tie_scan" else
+                 smoke_wave(rng, image, int(now), groups, lanes=lanes, ways=ways)
+                 for now in nows]
+        pm = scrambled_page_map(rng, size) if paged else None
+        kt, _ = kernel_tables(image, size, layout, pm, ways)
+        db = batch_to_device(stack_batches(hosts), DEVICE)
+        ko, err, launches, _ = _scan_against(name, kt, db, nows, layout, size.page_groups, ways)
+        r = {"ways": ways, "steps": steps, "batch": lanes,
+             "hits": int(ko.hits.sum()), "misses": int(ko.misses.sum()),
+             "unexpired_evictions": int(ko.unexpired_evictions.sum()),
+             "recurring_groups": _recurring_groups(hosts),
+             "launches": launches, "max_abs_err": err}
+        if what == "ways32_scan":
+            r["block_threads"], r["grid_blocks"] = cuda_decide.scan_grid(
+                DEVICE, lanes, layout=layout, ways=ways, paged=paged)
+            r["items"] = cuda_decide.scan_items(lanes, ways, r["block_threads"])
+            if not r["grid_blocks"] < r["items"]:
+                raise AssertionError(f"{name} {what}: grid {r['grid_blocks']} does not stride "
+                                     f"over {r['items']} items")
+        res[what] = r
+        del kt, db
+    return res
 
 
 def _recurring_groups(hosts) -> int:
@@ -898,43 +1047,23 @@ def phase_scan_kernel(rng, image, size, layout, page_map):
     tables (reused for the times) and the largest difference (0)."""
     paged = page_map is not None
     name = cuda_decide.config_name(layout, paged, scan=True)
-    wave_name = cuda_decide.config_name(layout, paged)
     gpp = size.page_groups
-    kt, pt = kernel_tables(image, size, layout, page_map)
-    wt = PagedTable(type(kt.data)(kt.data.data.clone()), kt.page_map.clone()) if paged \
-        else type(kt)(kt.data.clone())
-    pm0 = kt.page_map.clone() if paged else None
+    kt, _ = kernel_tables(image, size, layout, page_map)
     n = _rows(kt).shape[0]
     hosts, nows = scan_steps(rng, size, NOW + 1000)
     db = batch_to_device(stack_batches(hosts), DEVICE)
-    nows_d = torch.from_numpy(nows).to(DEVICE)
-    sync()
-    s0, w0 = cuda_decide.CONFIG_LAUNCHES[name], cuda_decide.CONFIG_LAUNCHES[wave_name]
-    ko = run_scan(kt, db, nows_d, layout, gpp)
-    sync()
-    scan_launches = cuda_decide.CONFIG_LAUNCHES[name] - s0
-    po = run_scan_plain(pt, db, nows_d, layout, gpp)
-    wo = run_waves(wt, db, nows, layout, gpp)
-    sync()
-    wave_launches = cuda_decide.CONFIG_LAUNCHES[wave_name] - w0
-    err = max(_out_err(ko, po), _out_err(ko, wo, f"{SCAN_T} {wave_name} launches"))
-    for ref, what in ((pt, "the plain version"), (wt, f"{SCAN_T} wave launches")):
-        if not torch.equal(_rows(kt), _rows(ref)):
-            rows = int((_rows(kt) != _rows(ref)).any(dim=1).sum())
-            raise AssertionError(f"{name}: table differs from {what} in {rows} rows")
-        if paged and not torch.equal(ref.page_map, pm0):
-            raise AssertionError(f"{name}: the page map changed ({what})")
-    if paged and not torch.equal(kt.page_map, pm0):
-        raise AssertionError(f"{name}: the page map changed")
-    if scan_launches != 1 or wave_launches != SCAN_T:
-        raise AssertionError(f"{name}: {scan_launches} scan launches, {wave_launches} wave launches")
+    ko, err, scan_launches, wave_launches = _scan_against(name, kt, db, nows, layout, gpp)
+    # the plain and wave-kernel copies equal the kernel's table again
+    pt, wt = _copy_table(kt), _copy_table(kt)
+    team = scan_team_checks(rng, layout, paged)
+    err = max([err] + [t["max_abs_err"] for t in team.values()])
     emit({"phase": "scan_kernel", "size": size.name, "kernel": name, "ok": True,
           "steps": SCAN_T, "batch": SCAN_B, "table_rows": n,
           "active_lanes": int(db.active.sum()),
           "recurring_groups": _recurring_groups(hosts),
           "sentinel_lanes": int((db.active & (ko.slot == n)).sum()),
           "live_matches": int(ko.hits.sum()),
-          "launches": scan_launches, "wave_launches_compared": wave_launches,
+          "launches": scan_launches, "wave_launches_compared": wave_launches, **team,
           "max_abs_err": err, "tolerance": "bit-exact (int64)"})
     return (kt, pt, wt), err
 
@@ -980,10 +1109,19 @@ def phase_scan_times(rng, size, layout, page_map, tables, card):
     sync()
     # the scan on the card: events around one launch, L2 flushed, the
     # device held busy (2M cycles, ~1 ms at the H100's 1.98 GHz) while
-    # the host enqueues: memset + kernel
+    # the host enqueues: the kernel alone (it zeroes its own sums)
     s_ms = _median_ms(scan, SCAN_REPS, flush, hold_cycles=2_000_000)
     s_dev = _profiled_device_ms(lambda: run_scan(kt, db, nows_d, layout, gpp), SCAN_REPS,
                                 "decide_scan_kernel")
+    # one scan, one device operation: among the marker fills the trace
+    # holds exactly SCAN_REPS operations, each the scan kernel
+    ops = _device_ops(lambda: run_scan(kt, db, nows_d, layout, gpp), SCAN_REPS)
+    scans = [o for o in ops if "decide_scan_kernel" in o]
+    others = [o for o in ops if "decide_scan_kernel" not in o]
+    if (len(scans) != SCAN_REPS or len(others) > 2 * MARKER_FILLS
+            or any("FillFunctor" not in o for o in others)):
+        raise AssertionError(f"{name}: {SCAN_REPS} scans, the profiler saw {len(scans)} scan "
+                             f"kernels and {others}")
     # the yardstick: the same steps as SCAN_T wave launches, events
     # around all of them (host-paced), and the kernels' device time
     w_ms = _median_ms(waves, 5, flush)
@@ -998,6 +1136,8 @@ def phase_scan_times(rng, size, layout, page_map, tables, card):
            "steps": SCAN_T, "batch": SCAN_B,
            "scan_ms_median": s_ms, "step_ms_median": s_ms / SCAN_T,
            "scan_device_ms_profiler": s_dev,
+           "device_ops_per_scan": len(scans) / SCAN_REPS,
+           "marker_fills_seen": len(others),
            "step_device_ms_profiler": s_dev / SCAN_T if s_dev else None,
            "waves_ms_median": w_ms,
            "waves_device_ms_profiler": w_dev * SCAN_T if w_dev else None,
@@ -1360,12 +1500,12 @@ def run_size(rng, size: Size, card: str):
 
 
 def team_vs_scan(size, layout, paged, times, stimes, card) -> None:
-    """The team wave kernel against the one-thread-per-lane body of the
-    same run, at B = 4096 on the card: the wave kernel's profiler time
-    per wave (the B sweep's fresh waves, and the scan's own 32 steps as
-    32 wave launches) beside the scan kernel's profiler time per step
-    (the scan still runs a thread per lane; in PRs 3-4 a step cost what
-    one wave kernel cost, within 3%)."""
+    """The two team kernels of the same run at B = 4096 on the card: the
+    wave kernel's profiler time per launch (the B sweep's fresh waves,
+    and the scan's own 32 steps as 32 wave launches) beside the scan
+    kernel's profiler time per step (the same team body in the
+    persistent grid, its inputs staged before each step's barrier, no
+    launch per step)."""
     wave = next(r for r in times["b_sweep"] if r["batch"] == SCAN_B)["profiler_ms"]
     step = stimes["step_device_ms_profiler"]
     on_steps = stimes["wave_device_ms_profiler"]

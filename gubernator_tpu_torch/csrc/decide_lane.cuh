@@ -12,20 +12,18 @@
 // The header also compiles as plain C++ (decide_lane_host.cc) so the CPU
 // tests run this very code against the plain version.
 //
-// Two arrangements of one lane's work share every piece of it:
-//   - a TEAM of T threads per lane (team_decide; the wave and sharded
-//     kernels). T is the smallest power of two >= ways, at most 32.
-//     Member t loads way t's whole row (ways t, t + 32, ... when ways >
-//     32) in one round of independent loads, evaluates it (way_eval),
-//     and the team reduces the candidates with a butterfly of
-//     __shfl_xor_sync over log2 T steps (combine). The member that holds
-//     the chosen way's row runs the bucket branch (lane_finish) from its
-//     registers: no second read of the row. The chain of a lane is then
-//     page map -> rows -> store, three dependent steps, where one thread
-//     walking the ways paid up to W + 2.
-//   - ONE thread per lane (lane_decide; the scan kernel), which folds the
-//     ways with the same way_eval and combine, reading the probe columns
-//     of each way and the rest of the row for a live match.
+// Every kernel runs a lane as a TEAM of T threads (team_decide, or
+// team_finish on a lane context the caller read): T is the smallest
+// power of two >= ways, at most 32. Member t loads way t's whole row
+// (ways t, t + 32, ... when ways > 32) in one round of independent
+// loads, evaluates it (way_eval), and the team reduces the candidates
+// with a butterfly of __shfl_xor_sync over log2 T steps (combine). The
+// member that holds the chosen way's row runs the bucket branch
+// (lane_finish) from its registers: no second read of the row. The
+// chain of a lane is then page map -> rows -> store, three dependent
+// steps, where one thread walking the ways paid up to W + 2; the scan
+// kernel also takes the page map and the batch columns off it, staged
+// before the barrier that starts a step (scan_plan, stage_start).
 // The host twin (decide_lane_host.cc) emulates the team: T candidates
 // from member_eval, the butterfly's combine calls in the device's order
 // (team_reduce_emulated), the owner's lane_finish.
@@ -107,6 +105,9 @@ struct GuberWaveArgs {
 struct GuberScanArgs {
   GuberWaveArgs wave;
   const int64_t* nows;  // (steps,)
+  // The counter of the kernel's grid barrier: one word of any value (the
+  // kernel zeroes it before it is used); unused by the host twin.
+  uint32_t* barrier;
   int32_t steps;
 };
 
@@ -560,22 +561,29 @@ struct LaneCtx {
   LaneReq r;
 };
 
+// Paged: the page-map word of logical group `group`, pp = page_map[g /
+// gpp] in int32: its page's frame, or -1 for a page that is not
+// resident or lies outside the map (a group beyond the logical table),
+// which is then not read out of bounds.
+GUBER_HD int32_t page_word(const GuberWaveArgs& a, int64_t group) {
+  const int64_t lp = floor_div(group, a.gpp);
+  return (lp >= 0 && lp < a.n_log_pages) ? a.page_map[lp] : int32_t(-1);
+}
+
 // Lane j that is `active` with logical group `group` (the caller reads
 // both: from the batch, or from a shard's ownership mask); `active`
-// implies `in_batch` (j < batch).
+// implies `in_batch` (j < batch). Paged, `pp` is the group's page_word.
 //
-// Paged (pallas_decide.py:418-422, :529-548): pp = page_map[g / gpp] in
-// int32; a lane whose page is not resident (pp < 0) is a SENTINEL lane.
-// It is still an active lane: it sees an all-empty group (no load: every
-// way evaluates a zero row), so it does not exist, inserts at way 0 of
-// category "empty" and answers as a fresh bucket; it counts in misses
-// and over_limit, never in the WaveScan sums (only written rows count),
-// stores nothing, and reports slot == n_slots with no evicted key. A
-// page index outside the map (a group beyond the logical table) is
-// treated the same way rather than read out of bounds.
+// Paged (pallas_decide.py:418-422, :529-548): a lane whose page is not
+// resident (pp < 0) is a SENTINEL lane. It is still an active lane: it
+// sees an all-empty group (no load: every way evaluates a zero row), so
+// it does not exist, inserts at way 0 of category "empty" and answers as
+// a fresh bucket; it counts in misses and over_limit, never in the
+// WaveScan sums (only written rows count), stores nothing, and reports
+// slot == n_slots with no evicted key.
 template <bool PAGED>
 GUBER_HD LaneCtx lane_ctx(const GuberWaveArgs& a, int j, bool in_batch,
-                          bool active, int64_t group) {
+                          bool active, int64_t group, int32_t pp) {
   LaneCtx x{};
   x.active = active;
   if (!in_batch) return x;
@@ -598,9 +606,6 @@ GUBER_HD LaneCtx lane_ctx(const GuberWaveArgs& a, int j, bool in_batch,
   bool resident = true;
   int64_t pgroup = group;
   if constexpr (PAGED) {
-    const int64_t lp = floor_div(group, a.gpp);
-    const int32_t pp =
-        (lp >= 0 && lp < a.n_log_pages) ? a.page_map[lp] : int32_t(-1);
     resident = pp >= 0;
     // int32 arithmetic as in the Pallas kernel (wrapping, not UB)
     const uint32_t phys = (uint32_t)pp * (uint32_t)a.gpp +
@@ -612,6 +617,15 @@ GUBER_HD LaneCtx lane_ctx(const GuberWaveArgs& a, int j, bool in_batch,
   return x;
 }
 
+// The same, reading the page map itself (the wave kernel: the word's
+// load goes out beside the request columns').
+template <bool PAGED>
+GUBER_HD LaneCtx lane_ctx(const GuberWaveArgs& a, int j, bool in_batch,
+                          bool active, int64_t group) {
+  return lane_ctx<PAGED>(a, j, in_batch, active, group,
+                         PAGED && active ? page_word(a, group) : int32_t(-1));
+}
+
 // Member t of the lane's team: its ways t, t + TEAM_MAX, ... (one way,
 // or none, when ways <= 32), each row loaded whole (zero rows for a lane
 // that is inactive or not resident) and evaluated, folded in ascending
@@ -619,17 +633,36 @@ GUBER_HD LaneCtx lane_ctx(const GuberWaveArgs& a, int j, bool in_batch,
 // live match, else its best insert way. (If the member holds a live
 // match, the team's chosen way is a live match, this member's first one
 // if it is the team's lowest; if it holds none, the team asks it only
-// for an insert way.)
-template <int LAYOUT>
+// for an insert way.) A hook `after_load()` runs once, after the
+// member's first row load is sent and before any row is used: work
+// placed there overlaps the load (the scan kernel starts its next stage
+// there). With a hook the first row is loaded ahead of the loop (the
+// scan is faster so: PERF.md); without one, the loop is as it was.
+struct NoHook {
+#if defined(__CUDACC__)
+  __host__ __device__
+#endif
+  void operator()() const {}
+};
+
+template <int LAYOUT, typename Hook = NoHook>
 GUBER_HD Cand member_eval(const GuberWaveArgs& a, const LaneCtx& x, int t,
-                          Row<LAYOUT>& keep) {
+                          Row<LAYOUT>& keep, const Hook& after_load = Hook()) {
   using C = Cols<LAYOUT>;
+  constexpr bool HOOKED = !std::is_same<Hook, NoHook>::value;
   const int64_t* grp = a.table + x.base * C::NCOLS;
+  Row<LAYOUT> first{};
+  if constexpr (HOOKED) {
+    if (t < a.ways && x.resident) first = load_row<LAYOUT>(grp + (int64_t)t * C::NCOLS);
+    after_load();
+  }
   Cand c = no_cand();
   keep = Row<LAYOUT>{};
   for (int w = t; w < a.ways; w += TEAM_MAX) {
     const Row<LAYOUT> r =
-        x.resident ? load_row<LAYOUT>(grp + (int64_t)w * C::NCOLS) : Row<LAYOUT>{};
+        HOOKED && w == t
+            ? first
+            : (x.resident ? load_row<LAYOUT>(grp + (int64_t)w * C::NCOLS) : Row<LAYOUT>{});
     const Cand e = way_eval(probe_of(r), x.key_hi, x.key_lo, a.now, w);
     const Cand n = combine(c, e);
     if (c.match == NO_WAY && (e.match != NO_WAY || n.way == w)) keep = r;
@@ -726,53 +759,6 @@ GUBER_HD LaneOut lane_finish(const GuberWaveArgs& a, const LaneCtx& x,
   return out;
 }
 
-// One lane of the wave by ONE thread (the scan kernel's body): the ways
-// folded in order with way_eval and combine over their probe columns
-// (KHI KLO META EXP INV), then the rest of the chosen row read only for
-// a live match, then lane_finish.
-template <int LAYOUT, bool PAGED>
-GUBER_HD LaneOut lane_decide(const GuberWaveArgs& a, int j, bool active,
-                             int64_t group, int64_t scal[N_SCAL]) {
-  using C = Cols<LAYOUT>;
-  if (!active) return padding_out(a);
-  const LaneCtx x = lane_ctx<PAGED>(a, j, true, active, group);
-  const int64_t* grp = a.table + x.base * C::NCOLS;
-  Cand c = no_cand();
-  Probe m{}, ins{};  // probe columns of the first live match, of the insert way
-  for (int w = 0; w < a.ways; ++w) {
-    const int64_t* row = grp + (int64_t)w * C::NCOLS;
-    const Probe p = x.resident ? Probe{row[C::KHI], row[C::KLO], row[C::META],
-                                       row[C::EXP], row[C::INV]}
-                               : Probe{};
-    const Cand e = way_eval(p, x.key_hi, x.key_lo, a.now, w);
-    const Cand n = combine(c, e);
-    if (c.match == NO_WAY && e.match != NO_WAY) m = p;
-    if (n.way == w) ins = p;
-    c = n;
-  }
-  const bool exists = c.match != NO_WAY;
-  const Probe sp = exists ? m : ins;
-  Row<LAYOUT> r{};
-  r.c[C::KHI] = sp.khi;
-  r.c[C::KLO] = sp.klo;
-  r.c[C::META] = sp.meta;
-  r.c[C::EXP] = sp.exp;
-  r.c[C::INV] = sp.inv;
-  if (exists) {
-    const int64_t* srow = grp + (int64_t)c.match * C::NCOLS;
-    if constexpr (LAYOUT == LAYOUT_NARROW) {
-      r.c[C::LIMBUR] = srow[C::LIMBUR];
-    } else {
-      r.c[C::LIM] = srow[C::LIM];
-      r.c[C::BUR] = srow[C::BUR];
-    }
-    r.c[C::DUR] = srow[C::DUR];
-    r.c[C::REM] = srow[C::REM];
-    r.c[C::STM] = srow[C::STM];
-  }
-  return lane_finish<LAYOUT>(a, x, c, r, scal);
-}
-
 // Stores a lane's outputs at j, all but `freed`, whose type the caller's
 // output decides.
 GUBER_HD void store_lane(const GuberWaveArgs& a, int j, const LaneOut& o) {
@@ -783,18 +769,6 @@ GUBER_HD void store_lane(const GuberWaveArgs& a, int j, const LaneOut& o) {
   a.out_slot[j] = o.slot;
   a.out_evicted_hi[j] = o.evicted_hi;
   a.out_evicted_lo[j] = o.evicted_lo;
-}
-
-// One lane of a wave over the batch's own lane j (lane_decide on its
-// `active` and `group` columns), its outputs stored at j.
-template <int LAYOUT, bool PAGED>
-GUBER_HD void decide_lane(const GuberWaveArgs& a, int j,
-                          int64_t scal[N_SCAL]) {
-  const bool active = a.active[j] != 0;
-  const LaneOut o =
-      lane_decide<LAYOUT, PAGED>(a, j, active, active ? a.group[j] : 0, scal);
-  store_lane(a, j, o);
-  a.out_freed[j] = o.freed ? 1 : 0;
 }
 
 // Where lane j of a sharded wave goes: the ownership prologue that every
@@ -823,9 +797,7 @@ GUBER_HD ShardLane shard_lane(const GuberShardArgs& s, int j) {
   if (!active) return ShardLane{false, 0, 0};
   const int64_t n_groups = (int64_t)s.n_shards * s.groups_per;
   if constexpr (XLATE) {
-    const int64_t lp = floor_div(g, a.gpp);
-    const int32_t pp =
-        (lp >= 0 && lp < a.n_log_pages) ? a.page_map[lp] : int32_t(-1);
+    const int32_t pp = page_word(a, g);
     // int32 arithmetic as in _xlate (wrapping, not UB)
     g = pp >= 0 ? (int64_t)(int32_t)((uint32_t)pp * (uint32_t)a.gpp +
                                      (uint32_t)(int32_t)floor_mod(g, a.gpp))
@@ -891,6 +863,121 @@ GUBER_HD GuberWaveArgs step_args(const GuberScanArgs& a, int t) {
   return w;
 }
 
+// ---------------------------------------------------------------------------
+// The scan's persistent grid (decide_scan.cu), shared with its host twin.
+
+// How a scan's grid of `grid` blocks of `threads` threads covers each
+// step's `batch` lanes. A block's threads are L = threads / T teams, one
+// lane each, so a block runs L consecutive lanes at a time: an ITEM, of
+// which a step has `items`. Block b runs items b, b + grid, b + 2 grid,
+// ... of every step, `iters` of them, the same count in every block: the
+// team's shuffles need every member of a warp on every pass, so an item
+// past the batch runs lanes with in_batch = false. When a step's items
+// fit the grid, iters = 1.
+struct ScanPlan {
+  int T, L, lg_L, items, iters;
+};
+
+GUBER_HD ScanPlan scan_plan(int batch, int ways, int grid, int threads) {
+  ScanPlan p;
+  p.T = team_size(ways);
+  p.L = threads / p.T;
+  p.lg_L = 0;
+  while ((1 << p.lg_L) < p.L) ++p.lg_L;
+  p.items = (batch + p.L - 1) / p.L;
+  p.iters = (p.items + grid - 1) / grid;
+  return p;
+}
+
+// First lane of item k of block b.
+GUBER_HD int64_t item_lane0(const ScanPlan& p, int b, int k, int grid) {
+  return ((int64_t)b + (int64_t)k * grid) * p.L;
+}
+
+// The STAGE of an item: the batch columns of its L lanes in shared
+// memory, column by column: the ten int64 columns, group and behavior
+// (int32), algo and active (int8), STAGE_LANE_BYTES a lane. L is a
+// multiple of 4, so every column of two stages side by side stays
+// aligned to its element size. Nothing a scan writes is staged: no table
+// row, only the batch's inputs.
+constexpr int STAGE_COLS = 14;
+constexpr int STAGE_WIDE_COLS = 12;  // the int64 and int32 columns
+constexpr int STAGE_LANE_BYTES = 10 * 8 + 2 * 4 + 2 * 1;
+
+// Column c of a wave's batch, in the stage's order, and its element size.
+GUBER_HD const void* stage_src_col(const GuberWaveArgs& a, int c) {
+  switch (c) {
+    case 0: return a.key_hi;
+    case 1: return a.key_lo;
+    case 2: return a.hits;
+    case 3: return a.limit;
+    case 4: return a.duration;
+    case 5: return a.rate_num;
+    case 6: return a.eff_duration;
+    case 7: return a.greg_expire;
+    case 8: return a.burst;
+    case 9: return a.created_at;
+    case 10: return a.group;
+    case 11: return a.behavior;
+    case 12: return a.algo;
+    default: return a.active;
+  }
+}
+GUBER_HD int stage_col_size(int c) { return c < 10 ? 8 : (c < 12 ? 4 : 1); }
+GUBER_HD int stage_col_offset(int c, int L) {
+  return (c < 10 ? 8 * c : (c < 12 ? 80 + 4 * (c - 10) : 88 + (c - 12))) * L;
+}
+
+// Element e of an item's stage (column e / L, lane e % L): its source in
+// the wave's batch, its offset in the stage, its size. False for a lane
+// past the batch, which is not staged.
+struct StageElem {
+  const unsigned char* src;
+  int off, size;
+};
+
+GUBER_HD bool stage_elem(const GuberWaveArgs& a, int64_t lane0, const ScanPlan& p,
+                         int e, StageElem& el) {
+  const int c = e >> p.lg_L, i = e & (p.L - 1);
+  if (lane0 + i >= a.batch) return false;
+  el.size = stage_col_size(c);
+  el.src = static_cast<const unsigned char*>(stage_src_col(a, c)) + (lane0 + i) * el.size;
+  el.off = stage_col_offset(c, p.L) + i * el.size;
+  return true;
+}
+
+// The wave `a` with its batch columns moved to the stage `st` of L
+// lanes, lane i of the item at index i: lane_ctx reads a staged lane as
+// it reads a batch's.
+GUBER_HD GuberWaveArgs stage_view(const GuberWaveArgs& a, const unsigned char* st, int L) {
+  GuberWaveArgs v = a;
+  v.key_hi = reinterpret_cast<const int64_t*>(st + stage_col_offset(0, L));
+  v.key_lo = reinterpret_cast<const int64_t*>(st + stage_col_offset(1, L));
+  v.hits = reinterpret_cast<const int64_t*>(st + stage_col_offset(2, L));
+  v.limit = reinterpret_cast<const int64_t*>(st + stage_col_offset(3, L));
+  v.duration = reinterpret_cast<const int64_t*>(st + stage_col_offset(4, L));
+  v.rate_num = reinterpret_cast<const int64_t*>(st + stage_col_offset(5, L));
+  v.eff_duration = reinterpret_cast<const int64_t*>(st + stage_col_offset(6, L));
+  v.greg_expire = reinterpret_cast<const int64_t*>(st + stage_col_offset(7, L));
+  v.burst = reinterpret_cast<const int64_t*>(st + stage_col_offset(8, L));
+  v.created_at = reinterpret_cast<const int64_t*>(st + stage_col_offset(9, L));
+  v.group = reinterpret_cast<const int32_t*>(st + stage_col_offset(10, L));
+  v.behavior = reinterpret_cast<const int32_t*>(st + stage_col_offset(11, L));
+  v.algo = reinterpret_cast<const int8_t*>(st + stage_col_offset(12, L));
+  v.active = st + stage_col_offset(13, L);
+  return v;
+}
+
+// Paged: the page word of lane i of the item staged in `st` from lane0
+// of wave `a`; -1 (unused) for a lane past the batch or inactive. The
+// page map is never written by a decide, so this load may go out before
+// the barrier that starts the item's step.
+GUBER_HD int32_t staged_page_word(const GuberWaveArgs& a, int64_t lane0, const ScanPlan& p,
+                                  const unsigned char* st, int i) {
+  const GuberWaveArgs v = stage_view(a, st, p.L);
+  return lane0 + i < a.batch && v.active[i] != 0 ? page_word(a, v.group[i]) : int32_t(-1);
+}
+
 // Calls f(L, P) with L = std::integral_constant<int, layout> and P =
 // std::bool_constant<paged> for one of the four static configurations,
 // so a caller instantiates its template with decltype(L)::value,
@@ -914,18 +1001,11 @@ bool dispatch(int layout, int paged, F&& f) {
 }
 
 #if defined(__CUDACC__)
-// Adds the block's per-thread sums `s` into scalars[0..N_SCAL): warp
-// shuffles, then shared memory, then one 64-bit atomicAdd per nonzero
-// scalar per block. Integer sums do not depend on order, so the result
-// is bit-exact. Every thread of the block (THREADS of them) must call
-// it: it holds a __syncthreads(). A caller that calls it again must put
-// a barrier between the calls, since threads 0..N_SCAL-1 read the shared
-// partials after the __syncthreads().
-template <int THREADS>
-__device__ __forceinline__ void block_add_scalars(const int64_t s[N_SCAL],
-                                                  int64_t* scalars) {
-  constexpr int kWarps = THREADS / 32;
-  __shared__ unsigned long long part[kWarps][N_SCAL];
+// The block's per-thread sums `s`, reduced per warp by shuffles into
+// part[warp][k] (lane 0 of each warp writes). Every thread of the block
+// must call it.
+__device__ __forceinline__ void warp_partials(const int64_t s[N_SCAL],
+                                              unsigned long long part[][N_SCAL]) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -936,15 +1016,38 @@ __device__ __forceinline__ void block_add_scalars(const int64_t s[N_SCAL],
       v += __shfl_down_sync(0xffffffffu, v, off);
     if (lane == 0) part[warp][k] = v;
   }
-  __syncthreads();
+}
+
+// Threads 0..N_SCAL-1 add the warps' partials of their scalar into
+// scalars[k]: one 64-bit atomicAdd per nonzero scalar per block. The
+// partials must be visible to them (a barrier since warp_partials).
+template <int THREADS>
+__device__ __forceinline__ void add_partials(unsigned long long part[][N_SCAL],
+                                             int64_t* scalars) {
   if (threadIdx.x < N_SCAL) {
     unsigned long long sum = 0;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum += part[w][threadIdx.x];
+    for (int w = 0; w < THREADS / 32; ++w) sum += part[w][threadIdx.x];
     if (sum != 0)
       atomicAdd(reinterpret_cast<unsigned long long*>(scalars) + threadIdx.x,
                 sum);
   }
+}
+
+// Adds the block's per-thread sums `s` into scalars[0..N_SCAL): warp
+// shuffles, then shared memory, then one 64-bit atomicAdd per nonzero
+// scalar per block. Integer sums do not depend on order, so the result
+// is bit-exact. Every thread of the block (THREADS of them) must call
+// it: it holds a __syncthreads(). A caller that calls it again must put
+// a barrier between the calls, since threads 0..N_SCAL-1 read the shared
+// partials after the __syncthreads().
+template <int THREADS>
+__device__ __forceinline__ void block_add_scalars(const int64_t s[N_SCAL],
+                                                  int64_t* scalars) {
+  __shared__ unsigned long long part[THREADS / 32][N_SCAL];
+  warp_partials(s, part);
+  __syncthreads();
+  add_partials<THREADS>(part, scalars);
 }
 
 // The wave and sharded kernels' sums, with no memset before the launch:
@@ -985,24 +1088,89 @@ __device__ __forceinline__ Cand team_reduce(Cand c, int T) {
   return c;
 }
 
-// Member t of lane j's team (T threads, consecutive lanes of one warp):
-// the lane's loads (lane_ctx) and the member's rows (member_eval), the
-// team's selection, then the member that holds the chosen row finishes
-// the lane from its registers. Returns true, with the lane's outputs in
+// Member t of a lane's team (T threads, consecutive lanes of one warp)
+// on the lane's context x: the member's rows (member_eval), the team's
+// selection, then the member that holds the chosen row finishes the
+// lane from its registers. Returns true, with the lane's outputs in
 // `out` and its sums added to `scal`, in that member only. Every member
 // of every team of the warp must call it (no early return before the
 // shuffles): lanes past the batch with in_batch = active = false.
+// `after_load` as in member_eval.
+template <int LAYOUT, typename Hook = NoHook>
+__device__ __forceinline__ bool team_finish(const GuberWaveArgs& a, const LaneCtx& x,
+                                            int t, int T, int64_t scal[N_SCAL],
+                                            LaneOut& out, const Hook& after_load = Hook()) {
+  Row<LAYOUT> row;
+  const Cand c = team_reduce(member_eval<LAYOUT>(a, x, t, row, after_load), T);
+  if (t != team_owner(c, T)) return false;
+  out = lane_finish<LAYOUT>(a, x, c, row, scal);
+  return true;
+}
+
+// team_finish on lane j of the wave `a`, its loads (lane_ctx: request
+// columns and, paged, the page word) beside the rows'.
 template <int LAYOUT, bool PAGED>
 __device__ __forceinline__ bool team_decide(const GuberWaveArgs& a, int j,
                                             bool in_batch, bool active,
                                             int64_t group, int t, int T,
                                             int64_t scal[N_SCAL], LaneOut& out) {
-  const LaneCtx x = lane_ctx<PAGED>(a, j, in_batch, active, group);
-  Row<LAYOUT> row;
-  const Cand c = team_reduce(member_eval<LAYOUT>(a, x, t, row), T);
-  if (t != team_owner(c, T)) return false;
-  out = lane_finish<LAYOUT>(a, x, c, row, scal);
-  return true;
+  return team_finish<LAYOUT>(a, lane_ctx<PAGED>(a, j, in_batch, active, group), t, T,
+                             scal, out);
+}
+
+// cp.async of `bytes` (4 or 8, both addresses aligned to it) from global
+// to shared memory, complete at the thread's next cp.async.wait_all.
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// The int8 elements a thread stages (at most two: 2 L <= 2 THREADS),
+// held in registers from stage_start to stage_land, so the loads are not
+// waited for in between.
+struct StageBytes {
+  uint32_t v[2];
+};
+
+// Thread threadIdx.x's share (of a block of THREADS) of staging the item
+// of p.L lanes from lane0 of wave `a` into `st`: its int64 and int32
+// elements as cp.async copies, its int8 elements as loads into the
+// returned registers. Starts only: stage_land completes them.
+template <int THREADS>
+__device__ __forceinline__ StageBytes stage_start(const GuberWaveArgs& a, int64_t lane0,
+                                                  const ScanPlan& p, unsigned char* st) {
+  StageElem el;
+  for (int e = threadIdx.x; e < STAGE_WIDE_COLS * p.L; e += THREADS)
+    if (stage_elem(a, lane0, p, e, el)) cp_async(st + el.off, el.src, el.size);
+  StageBytes b{{0, 0}};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int e = STAGE_WIDE_COLS * p.L + threadIdx.x + r * THREADS;
+    if (e < STAGE_COLS * p.L && stage_elem(a, lane0, p, e, el)) b.v[r] = *el.src;
+  }
+  return b;
+}
+
+// Completes the block's stage_start: stores the thread's int8 elements
+// and waits for its cp.async copies; with `sync`, a __syncthreads() then
+// makes the whole stage visible to the block (without it, the caller's
+// next block barrier does). Every thread of the block must call it.
+template <int THREADS>
+__device__ __forceinline__ void stage_land(const GuberWaveArgs& a, int64_t lane0,
+                                           const ScanPlan& p, unsigned char* st,
+                                           const StageBytes& b, bool sync) {
+  StageElem el;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int e = STAGE_WIDE_COLS * p.L + threadIdx.x + r * THREADS;
+    if (e < STAGE_COLS * p.L && stage_elem(a, lane0, p, e, el))
+      st[el.off] = static_cast<unsigned char>(b.v[r]);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  if (sync) __syncthreads();
 }
 #endif  // __CUDACC__
 

@@ -12,11 +12,14 @@ narrow layouts. The wave and scan kernels replace that module's
 a paged one; the sharded kernel replaces the mesh tier's per-shard
 `raw_decide_flat` and the psum over the shards, on a flat mesh table or
 a paged mesh's frames. See the sources for their design and bound:
-the wave and sharded kernels run a team of threads per lane (the ways
-rounded up to a power of two, at most 32) and add their 9 sums into a
-buffer that the launch before on the same stream zeroed (one device
-operation per wave; the wrapper keeps each stream's chain of buffers,
-`_launch_summed`); the scan runs a thread per lane.
+every kernel runs a team of threads per lane (the ways rounded up to a
+power of two, at most 32). The wave and sharded kernels add their 9
+sums into a buffer that the launch before on the same stream zeroed
+(one device operation per wave; the wrapper keeps each stream's chain
+of buffers, `_launch_summed`); the scan is one cooperative launch that
+zeroes its own (T, 9) sums (one device operation per scan) and stages
+each step's batch columns and page words before the barrier that
+starts the step.
 
 Dispatch is by the table's device and nothing else:
 
@@ -132,7 +135,7 @@ _BATCH_DTYPES = {
 class _ScanArgs(ctypes.Structure):
     """Mirror of `GuberScanArgs` in csrc/decide_lane.cuh."""
 
-    _fields_ = [("wave", _WaveArgs), ("nows", _P), ("steps", ctypes.c_int32)]
+    _fields_ = [("wave", _WaveArgs), ("nows", _P), ("barrier", _P), ("steps", ctypes.c_int32)]
 
 
 class _ShardArgs(ctypes.Structure):
@@ -258,6 +261,11 @@ def _decide_lib() -> ctypes.CDLL:
             ctypes.POINTER(_ScanArgs), ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.guber_decide_scan.restype = ctypes.c_int
+        lib.guber_decide_scan_grid.argtypes = [
+            ctypes.POINTER(_ScanArgs), ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int),
+        ]
+        lib.guber_decide_scan_grid.restype = ctypes.c_int
         lib.guber_decide_sharded.argtypes = [
             ctypes.POINTER(_ShardArgs), ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
@@ -354,9 +362,9 @@ def _wave(data, page_map, batch, now, *, layout, ways, gpp):
 
 def _scan(data, page_map, batches, nows, *, layout, ways, gpp) -> DecideOutput:
     """A scan of T waves of configuration (layout, paged = page_map
-    given) over the rows `data`, in place, as ONE kernel launch: the
-    stacked outputs, (T, B) lanes and (T,) sums. T = 0 launches
-    nothing."""
+    given) over the rows `data`, in place, as ONE kernel launch and no
+    other device operation (the kernel zeroes its own sums): the stacked
+    outputs, (T, B) lanes and (T,) sums. T = 0 launches nothing."""
     dev = data.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"decide runs on cuda or cpu, not {dev}")
@@ -366,12 +374,16 @@ def _scan(data, page_map, batches, nows, *, layout, ways, gpp) -> DecideOutput:
             _CODECS[layout], data, page_map, batches, nows, ways=ways, gpp=gpp
         )
     lib = _decide_lib()
-    out, _scan_sums, ptrs = _outputs((steps, b), dev)
+    _check_vector_rows(data, layout)
     if steps == 0:
-        return out
+        return _outputs((steps, b), dev)[0]
+    # the (T, 9) sums and, after them, the word of the kernel's grid
+    # barrier: one allocation, nothing to initialise
+    buf = torch.empty(steps * N_SCAL + 1, dtype=torch.int64, device=dev)
+    out, _scan_sums, ptrs = _outputs((steps, b), dev, scal=buf[:-1].view(steps, N_SCAL))
     args = _ScanArgs(
         _wave_args(data, batches, 0, ways, b, ptrs, page_map, gpp),
-        nows.data_ptr(), steps,
+        nows.data_ptr(), buf[-1:].data_ptr(), steps,
     )
     paged = page_map is not None
     name = config_name(layout, paged, scan=True)
@@ -485,31 +497,72 @@ def decide_scan_paged(
     return pt, out
 
 
+def scan_grid(device, batch: int, *, layout: str, ways: int, paged: bool) -> Tuple[int, int]:
+    """(threads per block, blocks) of the scan kernel of configuration
+    (layout, paged) on CUDA `device` for steps of `batch` lanes: 128
+    threads while `scan_items(batch, ways, 128)` fit one block per SM,
+    else 256; then min(items, co-resident blocks). Fewer blocks than
+    `scan_items(batch, ways, threads)` means the blocks stride over a
+    step's lanes."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("scan_grid asks the card: device must be CUDA")
+    lib = _decide_lib()
+    args = _ScanArgs(_WaveArgs(ways=ways, batch=batch), None, None, 1)
+    threads, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.guber_decide_scan_grid(ctypes.byref(args), _LAYOUT_CODE[layout], int(paged),
+                                        ctypes.byref(threads), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"scan grid query failed: CUDA error {rc}")
+    return threads.value, blocks.value
+
+
+def scan_items(batch: int, ways: int, threads: int = 128) -> int:
+    """Items of a scan step (decide_lane.cuh scan_plan): blocks' worth of
+    `threads` threads, a team of T per lane (T the smallest power of two
+    >= ways, at most 32)."""
+    t = 1
+    while t < ways and t < 32:
+        t <<= 1
+    return -(-batch // (threads // t))
+
+
 def decide_scan_lane_code_on_host(
     table, batches: RequestBatch, nows, *, ways: int = DEFAULT_WAYS,
     layout: str = "fused", page_map: Optional[torch.Tensor] = None, gpp: int = 0,
+    blocks: Optional[int] = None, threads: int = 128,
 ) -> Tuple[object, DecideOutput]:
-    """Tests only: the scan kernel's step loop and per-lane C++
-    (`step_args` and `decide_lane`, csrc/decide_lane.cuh) built by g++
-    and run step after step, lane after lane, on CPU tensors, so the CPU
-    test suite checks the scan's offsets and per-step sums. Same
+    """Tests only: the scan kernel's data flow (csrc/decide_scan.cu:
+    `scan_plan`, the stage, `step_args`, each lane's team emulated as
+    `decide_lane_code_on_host` runs it, the per-step sums) built by g++
+    from csrc/decide_lane.cuh and run on CPU tensors as a grid of
+    `blocks` blocks of `threads` threads (128 or 256) would run it
+    (default `scan_items(B, ways, threads)`, one item per block and step;
+    fewer make the blocks stride). Same
     arguments as `decide_scan_flat` (plus `page_map`/`gpp` for a paged
-    table's frames). No serving path calls this."""
+    table's frames). Raises if a lane's team has no single owner. No
+    serving path calls this."""
     data = table.data
     if data.device.type != "cpu":
         raise ValueError("decide_scan_lane_code_on_host takes CPU tensors")
     steps, b, nows = _check_scan(data, batches, nows, ways, layout, page_map, gpp)
     lib = _build.load("decide_lane_host")
     fn = lib.guber_decide_scan_host
-    fn.argtypes = [ctypes.POINTER(_ScanArgs), ctypes.c_int, ctypes.c_int]
+    fn.argtypes = [ctypes.POINTER(_ScanArgs), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int]
     fn.restype = ctypes.c_int
     out, _sums, ptrs = _outputs((steps, b), data.device)
+    if steps == 0:
+        return table, out
+    grid = max(1, scan_items(b, ways, threads)) if blocks is None else blocks
     args = _ScanArgs(
         _wave_args(data, batches, 0, ways, b, ptrs, page_map, gpp),
-        nows.data_ptr(), steps,
+        nows.data_ptr(), None, steps,
     )
-    if fn(ctypes.byref(args), _LAYOUT_CODE[layout], int(page_map is not None)) != 0:
-        raise RuntimeError("decide_lane_host scan failed")
+    rc = fn(ctypes.byref(args), _LAYOUT_CODE[layout], int(page_map is not None), grid, threads)
+    if rc != 0:
+        raise RuntimeError(f"decide_lane_host scan failed ({rc}: 2 is a lane whose team has no single owner)")
     return table, out
 
 
@@ -609,8 +662,8 @@ def decide_sharded_lane_code_on_host(
 
 def select_on_host(scores, live) -> Tuple[Tuple[int, int, int], Tuple[int, int, int]]:
     """Tests only: the way selection over `len(scores)` candidates
-    (int64 insertion scores, bool live matches) as the scan's serial
-    fold and as the wave kernel's team (member folds, then the emulated
+    (int64 insertion scores, bool live matches) as a serial fold and as
+    the kernels' team (member folds, then the emulated
     butterfly) compute it, each as (score, insert way, first live way
     or 2^31 - 1), from the g++ build of csrc/decide_lane.cuh."""
     scores = np.ascontiguousarray(scores, dtype=np.int64)

@@ -21,6 +21,24 @@ XLA paged scan translates such lanes differently (see
 tests/test_kernel_fuzz.py, which holds the two together on all-resident
 waves). Tolerance: none. Every (T, B) field, the (T,) sums and the
 whole table are compared bit for bit.
+
+The scan kernel runs a team of threads per lane in a persistent grid,
+each block's next item of lanes staged before the barrier that starts
+its step; its host build emulates that data flow on a grid of a given
+number of blocks of 128 or 256 threads. The team scan cases
+(`test_team_scan_*`) hold it, on every grid shape (one item per block;
+blocks that stride over several items per step; both block sizes),
+against the plain version, and a subset against the Pallas scan
+(reference lowering), fused and narrow, flat and paged, on the
+tie-heavy tables of test_torch_team.py (all ways empty, all expired,
+all live with one LRU stamp, a key live at two ways, ...):
+
+- `shared`: 4 steps that share 3/4 of their lanes (group, key, request)
+  with the step before, so most rows a step reads the step before wrote;
+- `ties`: 3 tie-heavy steps (8 ways);
+- `ways4`, `ways33`: the same on 4-way and 33-way tables (a team of 4;
+  a team of 32 whose members fold two ways);
+- `t1`: a scan of one step.
 """
 
 import jax
@@ -48,6 +66,13 @@ from test_torch_paged import (
     paged_waves,
     port_table,
 )
+from test_torch_team import B as TIE_B
+from test_torch_team import CODEC, JTABLE, TABLE, tie_wave
+from test_torch_team import GPP as TIE_GPP
+from test_torch_team import NUM_GROUPS as TIE_GROUPS
+from test_torch_team import _waves as tie_waves
+from test_torch_team import tables as tie_tables
+from gubernator_tpu.ops.paged import PagedTable as JPagedTable
 
 _UNPACK = {"fused": (fused.unpack_table, jfused.unpack_table),
            "narrow": (narrow.unpack_table, jnarrow.unpack_table)}
@@ -239,3 +264,131 @@ def test_stacked_batch_to_device_and_checks():
             "decide_scan_narrow_paged"} <= set(cuda_decide.CONFIG_LAUNCHES)
     # four wave, four scan and the two sharded-wave configurations
     assert len(cuda_decide.CONFIGS) == 10
+
+
+# ---------------------------------------------------------------------------
+# the team scan (the scan kernel's data flow, emulated by its host build)
+
+
+def _shared_waves(rng, image, wanted, ways, steps=4):
+    """`steps` waves on the tie image, each keeping 3/4 of the lanes of
+    the step before (group, key, request) and taking the rest from a
+    fresh tie wave, on groups the kept lanes do not hold."""
+    now = NOW
+    w = tie_wave(rng, image, wanted, ways, now)
+    out = [(w, now)]
+    for _ in range(steps - 1):
+        now += 250
+        keep = rng.permutation(TIE_B)[: TIE_B * 3 // 4]
+        fresh = tie_wave(rng, image, wanted, ways, now)
+        free = np.flatnonzero(~np.isin(fresh.group, w.group[keep]))[: TIE_B - keep.size]
+        assert free.size == TIE_B - keep.size
+        w = RequestBatch(*(np.concatenate([c[keep], f[free]]) for c, f in zip(w, fresh)))
+        out.append((w, now))
+    return out
+
+
+# case -> (ways, steps of the tie image's traffic)
+TEAM_CASES = {"shared": 8, "ties": 8, "ways4": 4, "ways33": 33, "t1": 8}
+
+
+def team_scan_case(case, layout, paged):
+    """(rows (N, C) on the CPU, page map or None, (T, B) host batch,
+    nows, ways) of a team scan case; paged: the frames of a scrambled
+    map of the tie image."""
+    ways = TEAM_CASES[case]
+    image, wanted, rows, pm, rng = tie_tables(60 + len(case) + ways, layout, ways, paged)
+    if case == "shared":
+        waves = _shared_waves(rng, image, wanted, ways)
+        shared = [np.intersect1d(a.group, b.group).size for (a, _), (b, _) in zip(waves, waves[1:])]
+        assert min(shared) >= TIE_B * 3 // 4, "consecutive steps must share most groups"
+    else:
+        waves = list(tie_waves(rng, image, wanted, ways))[: 1 if case == "t1" else None]
+    sb, nows = stacked(waves)
+    return rows, pm, sb, nows, ways
+
+
+# (blocks, threads) of the emulated grid: one item per block, blocks
+# that stride over several items, both block sizes
+GRIDS = {"fit128": (None, 128), "stride128": (1, 128), "fit256": (None, 256),
+         "stride256": (3, 256)}
+
+
+@pytest.mark.parametrize("grid", list(GRIDS))
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("layout", ["fused", "narrow"])
+@pytest.mark.parametrize("case", list(TEAM_CASES))
+def test_team_scan_matches_plain(case, layout, paged, grid):
+    """The scan kernel's host build on a grid shape against the plain
+    scan: every (T, B) field, the (T,) sums, the rows, the page map."""
+    rows, pm, sb, nows, ways = team_scan_case(case, layout, paged)
+    blocks, threads = GRIDS[grid]
+    gpp = TIE_GPP if paged else 0
+    pm0 = pm.clone() if paged else None
+    krows, prows = rows.clone(), rows.clone()
+    _, ko = cuda_decide.decide_scan_lane_code_on_host(
+        TABLE[layout](krows), batch_to_device(sb, "cpu"), nows, ways=ways, layout=layout,
+        page_map=pm, gpp=gpp, blocks=blocks, threads=threads)
+    po = fused.scan_plain(CODEC[layout], prows, pm, batch_to_device(sb, "cpu"), nows,
+                          ways=ways, gpp=gpp)
+    tag = f"{case}/{layout}/paged{paged}/{grid}"
+    assert po.status.shape == sb.key_hi.shape and po.hits.shape == (len(nows),)
+    assert_port_equal(ko, po, tag)
+    assert torch.equal(krows, prows), f"{tag}: rows"
+    assert pm is None or torch.equal(pm, pm0), f"{tag}: page map"
+    assert int(po.hits.sum()) > 0 and int(po.misses.sum()) > 0, tag
+
+
+def test_team_scan_grids_stride():
+    """The grid shapes of the team scan cases stride where they should:
+    fewer blocks than items per step (scan_items), and items past the
+    batch when the blocks do not divide them."""
+    assert cuda_decide.scan_items(TIE_B, 8, 128) == 2  # stride128: 1 block, 2 items a step
+    assert cuda_decide.scan_items(TIE_B, 33, 128) == 8
+    assert cuda_decide.scan_items(TIE_B, 33, 256) == 4  # stride256: 3 blocks, 2 passes
+    assert cuda_decide.scan_items(TIE_B, 4, 256) == 1
+    assert cuda_decide.scan_items(4096, 8, 128) == 256
+    assert cuda_decide.scan_items(4096, 8, 256) == 128
+    with pytest.raises(RuntimeError):
+        rows, pm, sb, nows, ways = team_scan_case("t1", "fused", False)
+        cuda_decide.decide_scan_lane_code_on_host(
+            TABLE["fused"](rows), batch_to_device(sb, "cpu"), nows, ways=ways, threads=192)
+
+
+def _jax_scan(layout, ways, jrows, jpm, sb, nows):
+    if jpm is None:
+        jt, jo = jpallas.decide_scan_flat(JTABLE[layout](jrows), to_jax(sb), jnp.asarray(nows),
+                                          layout=layout, ways=ways)
+        return jt.data, jo
+    jt, jo = jpallas.decide_scan_paged(JPagedTable(JTABLE[layout](jrows), jpm), to_jax(sb),
+                                       jnp.asarray(nows), layout=layout, ways=ways, gpp=TIE_GPP)
+    return jt.data.data, jo
+
+
+# Against JAX (a program compiles per case, ~3 s on one core): every case
+# once, each layout and each table kind at least twice.
+@pytest.mark.parametrize("case,layout,paged", [
+    ("shared", "fused", False), ("ties", "narrow", True), ("ways4", "fused", True),
+    ("ways33", "narrow", False), ("t1", "narrow", False), ("t1", "fused", True),
+])
+def test_team_scan_matches_pallas(case, layout, paged, monkeypatch):
+    """The scan kernel's host build (one item per block, and 256-thread
+    blocks that stride) against the JAX package's Pallas scan
+    (`decide_scan_flat` / `decide_scan_paged`, reference lowering):
+    every (T, B) field, the (T,) sums, the rows."""
+    monkeypatch.setenv("GUBER_PALLAS_INTERPRET", "0")
+    rows, pm, sb, nows, ways = team_scan_case(case, layout, paged)
+    gpp = TIE_GPP if paged else 0
+    # copies: jnp.asarray may share the numpy buffer, which the lane code
+    # then updates in place while JAX may still read it
+    jrows = jnp.array(rows.numpy(), copy=True)
+    jpm = jnp.array(pm.numpy(), copy=True) if paged else None
+    jrows, jo = _jax_scan(layout, ways, jrows, jpm, sb, nows)
+    for blocks, threads in ((None, 128), (1, 256)):
+        krows = rows.clone()
+        _, ko = cuda_decide.decide_scan_lane_code_on_host(
+            TABLE[layout](krows), batch_to_device(sb, "cpu"), nows, ways=ways, layout=layout,
+            page_map=pm, gpp=gpp, blocks=blocks, threads=threads)
+        tag = f"{case}/{layout}/paged{paged}/{blocks}x{threads}"
+        assert_out_equal(ko, jo, tag)
+        assert np.array_equal(krows.numpy(), np.asarray(jrows)), f"{tag}: rows"
