@@ -6,10 +6,10 @@ Builds the port's native code from the checkout (the CUDA decide-wave
 kernel, four configurations, the decide-scan kernel, four
 configurations at two block sizes, and the sharded decide-wave kernel,
 two configurations, one nvcc per source, all built for sm_90a and
-linked into one library, and the key hasher with g++, every compiler
-started at once; the build line gives each kernel's registers, spills
-and static shared memory), then drives it at two sizes and prints one
-JSON line per phase:
+linked into one library, and the key hasher and the wire path with
+g++, every compiler started at once; the build line gives each
+kernel's registers, spills and static shared memory), then drives it
+at two sizes and prints one JSON line per phase:
 
 - 1M (BASELINE.json config 3, "1M-key Zipfian"): a flat table of 2^18
   groups x 8 ways holding 1,000,000 live keys; kernel configurations
@@ -40,7 +40,11 @@ Phases, for each size:
 2. times, over fresh waves at B = 1024 (paged: groups on resident pages
    only, as the main path runs them): the kernel's median device time
    per launch (CUDA events, L2 flushed before each, device held busy
-   while the host enqueues), the median of the whole launch path, the
+   while the host enqueues, the one-wave flush made and its sums zeroed
+   before the window), the median of the whole launch path (the
+   engine's: one wave of a `WaveFlush` over the 200 waves, whose batch
+   went to the card in one copy and whose outputs are one allocation;
+   and, beside it, the one-wave wrapper's, a flush of one wave), the
    median of 5 runs of 200 back-to-back launches, the kernel's device
    time from torch.profiler, the plain version's median and the byte
    bound, which counts the live matches each timed launch found; and a
@@ -99,6 +103,35 @@ Phases, for each size:
    shard), on phase 5's calls and clock, against phase 5's CPU engine:
    every response and the snapshot equal, one sharded-kernel launch per
    wave, no other configuration launched.
+9. edge_main_path: the same calls as GetRateLimitsReq bytes (a varint
+   encoder here; the card's machine has no protobuf) through
+   `serve_get_rate_limits_bytes`, the columnar edge. First the
+   mechanism check, at max_waves = 1000 so that a call fits one flush
+   (the calls' hottest key repeats about 120 times): on a CPU engine,
+   whose answers must equal the CPU object path's in the edge's order
+   (the Gregorian items after the columnar decide), then on the card on
+   a DeviceEngine per configuration and an IciEngine per layout: the
+   CPU edge's response bytes and snapshot (key strings included), one
+   launch per wave and no other configuration's, every call that is
+   not all-Gregorian served by one columnar flush, the Gregorian items
+   spliced through the object path; decisions/s and seconds. Then the
+   same engines at the default max_waves (32), what a deployment runs:
+   the edge declines every such call and the object path serves it
+   from the native parse, bytes and snapshot equal to the main path's
+   CPU reference, no columnar flush; its decisions/s is the edge's
+   served rate for this traffic.
+10. pipeline: phase 5's object path at pipeline_depth 1 and 2, in turns
+   1, 2, 2, 1, on every engine of phase 9 (same calls, frozen clock):
+   responses and snapshot equal to the CPU engine's at both depths,
+   launches = waves; per run the most flushes in flight (from the end
+   of a flush's dispatch to the end of its completion, as the JAX
+   engine counts them), the host spans of the two stages (`_dispatch`,
+   `_complete`), decisions/s and, paged, the pager's spans. Then a
+   fifth, held run at depth 2: each flush's device work held about 20
+   ms longer on the engine's stream, so the device is the bottleneck;
+   answers equal, and on a flat table two flushes in flight (a paged
+   table's demote waits on the stream inside dispatch: reported only).
+   Phases 5 and 8 run at the engines' default depth, 2.
 
 Then the bench (`gubernator_tpu_torch/bench.py`, the port of the repo's
 `bench.py` device modes), each run with the launch counts set to 0 just
@@ -142,7 +175,7 @@ if not torch.cuda.is_available():
 
 from gubernator_tpu_torch import bench  # noqa: E402
 from gubernator_tpu_torch.api.keys import key_hash128_batch  # noqa: E402
-from gubernator_tpu_torch.api.types import RateLimitReq  # noqa: E402
+from gubernator_tpu_torch.api.types import RateLimitReq, RateLimitResp  # noqa: E402
 from gubernator_tpu_torch.ops import _build, cuda_decide, fused, narrow  # noqa: E402
 from gubernator_tpu_torch.ops.layout import (  # noqa: E402
     BATCH_DTYPES,
@@ -155,7 +188,11 @@ from gubernator_tpu_torch.ops.layout import (  # noqa: E402
 from gubernator_tpu_torch.ops.paged import PagedTable  # noqa: E402
 from gubernator_tpu_torch.runtime.engine import DeviceEngine, EngineConfig  # noqa: E402
 from gubernator_tpu_torch.runtime.ici_engine import IciEngine, IciEngineConfig  # noqa: E402
-from gubernator_tpu_torch.service.server import V1Service  # noqa: E402
+from gubernator_tpu_torch import wire  # noqa: E402
+from gubernator_tpu_torch.service.server import (  # noqa: E402
+    V1Service,
+    serve_get_rate_limits_bytes,
+)
 from gubernator_tpu_torch.utils import clock as _clock  # noqa: E402
 
 
@@ -538,7 +575,7 @@ def bound_ms(hb, layout, resident, paged, hits, freed_bytes=1):
 # phases
 
 
-LIBS = ["decide_cuda", "guberhash"]
+LIBS = ["decide_cuda", "guberhash", "wirepath"]
 
 
 def _ptxas_kernels(log: str) -> dict:
@@ -699,22 +736,24 @@ def phase_mesh_kernel(rng, image, size, layout, page_map):
     return kt, pt, err
 
 
-def _median_ms(fn, reps, flush, hold_cycles=0):
+def _median_ms(fn, reps, flush, hold_cycles=0, setup=None):
     """Median of `reps` launches timed one by one with CUDA events, L2
     flushed before each. With `hold_cycles` the stream first spins that
     long on the device, so the host has enqueued start event, launch and
     end event before the device reaches them: the window then holds only
     device work. Without it the device idles while the host works, and
-    the window also holds the host's launch path."""
+    the window also holds the host's launch path. With `setup`, each
+    launch is `fn(setup())`, setup's work queued before the window."""
     times = []
     for _ in range(reps):
+        arg = setup() if setup is not None else None
         flush.zero_()
         if hold_cycles:
             torch.cuda._sleep(hold_cycles)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        fn()
+        fn() if setup is None else fn(arg)
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e))
@@ -769,6 +808,47 @@ def _profiled_device_ms(fn, reps, kernel="decide_wave_kernel"):
     return total_us / count / 1e3 if count and total_us > 0 else None
 
 
+def lone_wave(table, now, layout, gpp, shards):
+    """The one-wave wrapper's launch in two steps, so that a window of
+    `_median_ms` holds the kernel alone: `setup(db)` makes the wrapper's
+    one-wave `WaveFlush` (its checks, its output allocation and the
+    memset of its sums), `launch(flush)` launches the wave into it and
+    returns the flush."""
+    rows, pm = _rows(table), (table.page_map if isinstance(table, PagedTable) else None)
+
+    def setup(db):
+        return cuda_decide.WaveFlush(db, None, cuda_decide.TableMemo())
+
+    def launch(fl):
+        fl.launch(0, rows, pm, now, layout=layout, ways=WAYS, gpp=gpp, n_shards=shards)
+        return fl
+
+    return setup, launch
+
+
+def flush_wave(table, hbs, now, layout, gpp, shards):
+    """A function that launches the next of the host waves `hbs` (each
+    of the same width) through the engine's launch path: one
+    `WaveFlush` over all of them (one batch copy, one output
+    allocation), wave i launched on call i (mod len(hbs))."""
+    lanes = len(hbs[0].active)
+    flat = RequestBatch(*(np.concatenate(c) for c in zip(*hbs)))
+    fl = cuda_decide.WaveFlush(batch_to_device(flat, DEVICE),
+                               [(i * lanes, lanes) for i in range(len(hbs))],
+                               cuda_decide.TableMemo())
+    rows, pm = _rows(table), (table.page_map if isinstance(table, PagedTable) else None)
+    state = {"i": 0}
+
+    def launch():
+        i = state["i"] % len(hbs)
+        state["i"] += 1
+        fl.launch(i, rows, pm, now, layout=layout, ways=WAYS, gpp=gpp, n_shards=shards)
+
+    launch()  # the table's check, once
+    sync()
+    return launch
+
+
 def phase_times(rng, image, size, layout, page_map, kt, pt, card, shards=0):
     """Times at the main path's shape (B = 1024), each over fresh waves
     of distinct groups so the group blocks come from HBM, not L2. A
@@ -794,15 +874,21 @@ def phase_times(rng, image, size, layout, page_map, kt, pt, card, shards=0):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)  # > 50 MB L2
     state = {"i": 0}
     timed = []  # (wave index, live-match count) of each launch in (a)
+    lone_setup, lone_launch = lone_wave(kt, now, layout, gpp, shards)
 
     def kernel():
         i = state["i"] % reps
         state["i"] += 1
-        out, _ = run_kernel(kt, dbs[i], now, layout, gpp, shards)
-        return i, out.hits
+        run_kernel(kt, dbs[i], now, layout, gpp, shards)
 
-    def kernel_a():
-        timed.append(kernel())
+    def setup_a():
+        i = state["i"] % reps
+        state["i"] += 1
+        return i, lone_setup(dbs[i])
+
+    def kernel_a(arg):
+        i, fl = arg
+        timed.append((i, lone_launch(fl).sums[0, 0]))
 
     def plain():
         db = dbs[state["i"] % reps]
@@ -814,12 +900,17 @@ def phase_times(rng, image, size, layout, page_map, kt, pt, card, shards=0):
     sync()
     # (a) the kernel on the card: median of 200 launches timed one by
     # one, L2 flushed before each, the device held busy (~1 ms) while
-    # the host enqueues, so the window holds the kernel only (it writes
-    # its own sums: one device operation per wave)
-    k_ms = _median_ms(kernel_a, reps, flush, hold_cycles=2_000_000)
+    # the host enqueues, so the window holds the kernel only (the
+    # wrapper's flush made, and its sums zeroed, before the window)
+    k_ms = _median_ms(kernel_a, reps, flush, hold_cycles=2_000_000, setup=setup_a)
     # (a') the same without the hold: the launch path a lone wave pays
-    # (wrapper checks and allocations, ctypes call, kernel)
-    path_ms = _median_ms(kernel, reps, flush)
+    # through the one-wave wrapper (a flush of one wave: its checks,
+    # allocation, memset of its sums, ctypes call, kernel)
+    wrapper_path_ms = _median_ms(kernel, reps, flush)
+    # (a'') the engine's launch path: the same waves as one flush
+    # (`WaveFlush`: batch in one copy and checked once, outputs in one
+    # allocation, the table checked once), one wave launched per timing
+    path_ms = _median_ms(flush_wave(kt, hbs, now, layout, gpp, shards), reps, flush)
     # (b) runs of 200 back-to-back launches, events around each run;
     # the median of 5 runs, per launch (host-paced, so noisy)
     runs = []
@@ -852,9 +943,15 @@ def phase_times(rng, image, size, layout, page_map, kt, pt, card, shards=0):
             at["i"] += 1
             run_kernel(kt, dbl[i], now, layout, gpp, shards)
 
+        def setup_wide():
+            i = at["i"] % reps
+            at["i"] += 1
+            return lone_setup(dbl[i])
+
         for _ in range(10):
             wide()
-        sweep[lanes] = {"events_ms": _median_ms(wide, reps, flush, hold_cycles=2_000_000),
+        sweep[lanes] = {"events_ms": _median_ms(lone_launch, reps, flush,
+                                                hold_cycles=2_000_000, setup=setup_wide),
                         "profiler_ms": _profiled_device_ms(wide, reps, symbol)}
         del dbl
     plain()
@@ -866,6 +963,7 @@ def phase_times(rng, image, size, layout, page_map, kt, pt, card, shards=0):
     b_ms = statistics.median(b for b, _ in bounds)
     res = {"phase": "mesh_times" if shards else "times", "size": size.name, "kernel": name,
            "kernel_ms_median": k_ms, "launch_path_ms_median": path_ms,
+           "launch_path_ms_median_wrapper": wrapper_path_ms,
            "kernel_ms_run": statistics.median(runs), "kernel_ms_runs": runs,
            "kernel_device_ms_profiler": dev_ms, "plain_ms_median": p_ms,
            "bound_ms": b_ms, "bound_by": bounds[0][1], "batch": B,
@@ -1464,6 +1562,348 @@ def phase_mesh_main_path(size: Size, reference):
     return results
 
 
+# ---------------------------------------------------------------------------
+# the columnar edge (wire bytes -> check_columns -> wire bytes) and the
+# two-stage pipeline
+
+# The edge's mechanism check takes a whole call in one flush: the calls'
+# hottest key repeats about 120 times in a call, and check_columns
+# declines a batch of more waves than max_waves (the default 32, which
+# no deployment setting of either package raises) to the object path.
+# The edge's served rate at the default is the object path's, measured
+# in the same phase.
+EDGE_MAX_WAVES = ITEMS
+_REQ_FIELDS = (("name", 1, 2), ("unique_key", 2, 2), ("hits", 3, 0), ("limit", 4, 0),
+               ("duration", 5, 0), ("algorithm", 6, 0), ("behavior", 7, 0), ("burst", 8, 0))
+
+
+def encode_request(items) -> bytes:
+    """GetRateLimitsReq bytes of one call's item dicts, as protobuf
+    writes them (fields in number order, zero values omitted)."""
+    _varint = wire.varint
+    out = bytearray()
+    for kw in items:
+        body = bytearray()
+        for name, num, wt in _REQ_FIELDS:
+            v = kw.get(name)
+            if not v:
+                continue
+            body.append(num << 3 | wt)
+            if wt == 2:
+                raw = v.encode("utf-8")
+                body += _varint(len(raw)) + raw
+            else:
+                body += _varint(int(v))
+        out.append(0x0A)
+        out += _varint(len(body)) + body
+    return bytes(out)
+
+
+def _serve_bytes(svc, bodies, clk):
+    """Every call's bytes through `serve_get_rate_limits_bytes`; returns
+    (response bytes, seconds, each call's columnar flushes)."""
+    t, out, columnar = 0.0, [], []
+    for data in bodies:
+        c0 = svc.engine.stats()["columnar_flushes"]
+        t0 = time.perf_counter()
+        out.append(asyncio.run(serve_get_rate_limits_bytes(svc, data)))
+        t += time.perf_counter() - t0
+        columnar.append(svc.engine.stats()["columnar_flushes"] - c0)
+        clk.advance(700)
+    clk.advance(-700 * len(bodies))
+    return out, t, columnar
+
+
+def _serve_splice_order(svc, calls, clk):
+    """The object path in the edge's order: per call its non-Gregorian
+    items, then its Gregorian ones (the edge splices those in after the
+    columnar decide, as the JAX package's does); the answers in request
+    order, encoded as a GetRateLimitsResp."""
+    out = []
+    for items in calls:
+        resp = [None] * len(items)
+        greg = [i for i, kw in enumerate(items) if kw["behavior"] & 4]
+        rest = [i for i, kw in enumerate(items) if not kw["behavior"] & 4]
+        for idx in (rest, greg):
+            if idx:
+                got = asyncio.run(svc.get_rate_limits([RateLimitReq(**items[i]) for i in idx]))
+                for i, r in zip(idx, got):
+                    resp[i] = r
+        out.append(wire.encode_responses(resp))
+        clk.advance(700)
+    clk.advance(-700 * len(calls))
+    return out
+
+
+def _snap_diff(a, b) -> list:
+    diff = [f for f in SlotTable._fields if not np.array_equal(a[f], b[f])]
+    if a["key_strings"] != b["key_strings"]:
+        diff.append("key_strings")
+    return diff
+
+
+def _edge_engine(size, layout, paged, mesh, **kw):
+    pcfg = dict(page_groups=size.page_groups, page_budget=size.page_budget) if paged else {}
+    base = dict(num_groups=size.num_groups, ways=WAYS, batch_size=B, layout=layout, **pcfg, **kw)
+    if mesh:
+        return IciEngine(IciEngineConfig(devices=[DEVICE] * MESH_SHARDS, **base))
+    return DeviceEngine(EngineConfig(device=DEVICE.type, **base))
+
+
+def _edge_configs(size):
+    """(kernel name, layout, paged, mesh) of every engine the edge and
+    pipeline phases drive at this size."""
+    return ([(cuda_decide.config_name(lay, p), lay, p, False) for lay, p in size.configs]
+            + [(cuda_decide.sharded_name(lay), lay, p, True) for lay, p in size.configs])
+
+
+def phase_edge_main_path(size: Size, reference):
+    """`serve_get_rate_limits_bytes` (the columnar edge) over the main
+    path's calls, as GetRateLimitsReq bytes, on the frozen clock: once on
+    a CPU engine (flat, fused: the plain version) and, on the card, on a
+    DeviceEngine per configuration of the size and on an IciEngine of 8
+    shards per layout. The CPU edge must answer as the CPU object path
+    does in the edge's order (`_serve_splice_order`); every card run must
+    give the CPU edge's response bytes and snapshot (key strings
+    included), one kernel launch per wave and no other configuration's,
+    and serve every call that is not all-Gregorian through the columnar
+    path (one columnar flush each), the Gregorian items spliced through
+    the object path."""
+    snap, calls, _want, _csnap = reference
+    bodies = [encode_request(items) for items in calls]
+    n_greg = [sum(1 for kw in items if kw["behavior"] & 4) for items in calls]
+    must_columnar = sum(1 for items, g in zip(calls, n_greg) if g < len(items))
+    repeats = [int(np.unique([kw["unique_key"] for kw in items], return_counts=True)[1].max())
+               for items in calls]
+    base = dict(num_groups=size.num_groups, ways=WAYS, batch_size=B, max_waves=EDGE_MAX_WAVES)
+    results = {}
+    with _clock.freeze(NOW) as clk:
+        ceng = DeviceEngine(EngineConfig(device="cpu", **base))
+        try:
+            ceng.restore(snap)
+            want, _, _ = _serve_bytes(V1Service(ceng), bodies, clk)
+            csnap = ceng.snapshot()
+        finally:
+            ceng.close()
+        oeng = DeviceEngine(EngineConfig(device="cpu", **base))
+        try:
+            oeng.restore(snap)
+            obj = _serve_splice_order(V1Service(oeng), calls, clk)
+            osnap = oeng.snapshot()
+        finally:
+            oeng.close()
+        obj_mismatch = sum(a != b for a, b in zip(want, obj))
+        if obj_mismatch or _snap_diff(osnap, csnap):
+            raise AssertionError(f"{size.name}: the CPU edge disagrees with the object path")
+        del osnap
+        for name, layout, paged, mesh in _edge_configs(size):
+            eng = _edge_engine(size, layout, paged, mesh, max_waves=EDGE_MAX_WAVES)
+            try:
+                eng.restore(snap)
+                st0 = eng.stats()
+                sync()
+                cuda_decide.reset_launches()
+                got, secs, columnar = _serve_bytes(V1Service(eng), bodies, clk)
+                launches = dict(cuda_decide.CONFIG_LAUNCHES)
+                st = eng.stats()
+                esnap = eng.snapshot()
+            finally:
+                eng.close()
+            decisions = sum(len(c) for c in calls)
+            res = {"phase": "edge_main_path", "size": size.name, "kernel": name,
+                   "mesh": mesh, "paged": paged, "calls": len(calls), "items": decisions,
+                   "max_waves": EDGE_MAX_WAVES, "default_max_waves": False,
+                   "max_key_repeats_per_call": repeats,
+                   "response_bytes_mismatches": sum(a != b for a, b in zip(got, want)),
+                   "object_path_mismatches": sum(a != b for a, b in zip(got, obj)),
+                   "snapshot_columns_differing": _snap_diff(esnap, csnap),
+                   "columnar_flushes": st["columnar_flushes"] - st0["columnar_flushes"],
+                   "columnar_calls": sum(1 for c in columnar if c == 1),
+                   "calls_not_all_gregorian": must_columnar,
+                   "spliced_items": sum(n_greg), "object_path_flushes": st["flushes"] - st0["flushes"],
+                   "waves": st["waves"] - st0["waves"],
+                   "engine_kernel_launches": st["kernel_launches"] - st0["kernel_launches"],
+                   "launches": launches[name],
+                   "other_kernel_launches": sum(launches.values()) - launches[name],
+                   "over_limit": st["over_limit"] - st0["over_limit"],
+                   "decisions_per_s": decisions / secs, "seconds": secs}
+            if paged:
+                res.update({k: st[k] - st0[k] for k in ("promotes", "demotes", "binds")})
+            del esnap
+            emit(res)
+            if res["response_bytes_mismatches"] or res["object_path_mismatches"] \
+                    or res["snapshot_columns_differing"]:
+                raise AssertionError(f"{name}: the edge disagrees with the CPU engine")
+            if not (res["launches"] == res["engine_kernel_launches"] == res["waves"] > 0):
+                raise AssertionError(f"{name}: edge kernel launches do not match the waves")
+            if res["other_kernel_launches"]:
+                raise AssertionError(f"{name}: another configuration was launched")
+            if res["columnar_calls"] != must_columnar:
+                raise AssertionError(f"{name}: a call that is not all-Gregorian was served "
+                                     "without the columnar path")
+            results[(name, size.name)] = res
+            free_device()
+        # The same bytes at the engines' default max_waves, what a
+        # deployment runs: every call's hottest key repeats more often
+        # than that, so the edge declines each call (nothing committed)
+        # and the object path serves it from the native parse. Its bytes
+        # and snapshot must be the CPU object path's (the main path's
+        # reference), in request order.
+        max_waves = EngineConfig.max_waves
+        if min(repeats) <= max_waves:
+            raise AssertionError(f"{size.name}: a call fits the default max_waves; the "
+                                 "default-setting edge run expects none to")
+        want_obj = [wire.encode_responses([RateLimitResp(*t) for t in call]) for call in _want]
+        for name, layout, paged, mesh in _edge_configs(size):
+            eng = _edge_engine(size, layout, paged, mesh)
+            try:
+                eng.restore(snap)
+                st0 = eng.stats()
+                sync()
+                cuda_decide.reset_launches()
+                got, secs, columnar = _serve_bytes(V1Service(eng), bodies, clk)
+                launches = dict(cuda_decide.CONFIG_LAUNCHES)
+                st = eng.stats()
+                esnap = eng.snapshot()
+            finally:
+                eng.close()
+            decisions = sum(len(c) for c in calls)
+            res = {"phase": "edge_main_path", "size": size.name, "kernel": name,
+                   "mesh": mesh, "paged": paged, "calls": len(calls), "items": decisions,
+                   "max_waves": max_waves, "default_max_waves": True,
+                   "max_key_repeats_per_call": repeats,
+                   "response_bytes_mismatches": sum(a != b for a, b in zip(got, want_obj)),
+                   "snapshot_columns_differing": _snap_diff(esnap, _csnap),
+                   "columnar_flushes": st["columnar_flushes"] - st0["columnar_flushes"],
+                   "columnar_calls": sum(1 for c in columnar if c == 1),
+                   "object_path_flushes": st["flushes"] - st0["flushes"],
+                   "waves": st["waves"] - st0["waves"], "launches": launches[name],
+                   "decisions_per_s": decisions / secs, "seconds": secs}
+            del esnap
+            emit(res)
+            if res["response_bytes_mismatches"] or res["snapshot_columns_differing"]:
+                raise AssertionError(f"{name}: the default-setting edge disagrees with the "
+                                     "CPU object path")
+            if res["columnar_flushes"] or res["launches"] != res["waves"]:
+                raise AssertionError(f"{name}: the default-setting edge ran columnar, or its "
+                                     "launches do not match the waves")
+            results[(name, size.name, "default")] = res
+            free_device()
+    return results
+
+
+# The pipeline's mechanism check holds each flush's device work this
+# many cycles longer (about 20 ms at the H100's 1.98 GHz), longer than
+# the pump's dispatch of a flush (4-8 ms at 1M), so that the device and
+# not the host is the bottleneck.
+PIPE_HOLD_CYCLES = 40_000_000
+
+
+class _StageSpans:
+    """Host-clock spans of an engine's two pipeline stages, one per
+    flush: `_dispatch` (the pump: hash, assemble, encode, launch) and
+    `_complete` (the completion thread at depth 2, the pump at depth 1:
+    the event, the counts, the futures). With `hold_cycles`, each flush
+    first queues a spin of that many cycles on the engine's stream
+    (`torch.cuda._sleep`), so the flush's device work outlasts the next
+    dispatch; the decisions are unchanged. The methods are wrapped on
+    this one instance; the engine is unchanged."""
+
+    def __init__(self, eng, hold_cycles: int = 0):
+        self.dispatch, self.complete = [], []
+        dispatch, complete, execute = eng._dispatch, eng._complete, eng._execute_waves
+
+        def timed(fn, out):
+            def run(*a):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a)
+                finally:
+                    out.append(time.perf_counter() - t0)
+            return run
+
+        def held(*a):
+            with eng._on_stream():
+                torch.cuda._sleep(hold_cycles)
+            return execute(*a)
+
+        eng._dispatch = timed(dispatch, self.dispatch)
+        eng._complete = timed(complete, self.complete)
+        if hold_cycles:
+            eng._execute_waves = held
+
+    def summary(self) -> dict:
+        ms = lambda v: 1e3 * statistics.median(v) if v else None  # noqa: E731
+        return {"dispatch_ms_median": ms(self.dispatch), "complete_ms_median": ms(self.complete),
+                "dispatch_s": sum(self.dispatch), "complete_s": sum(self.complete)}
+
+
+def phase_pipeline(size: Size, reference):
+    """The object path (`V1Service.get_rate_limits`) at pipeline_depth 1
+    and 2, in turns (1, 2, 2, 1: the host's noise between runs is as
+    large as the effect) on the same calls and frozen clock, for every
+    engine of the size (DeviceEngine per configuration, IciEngine per
+    layout): every run's responses and snapshot equal to the CPU
+    engine's (the main path's reference); per run the most flushes in
+    flight (counted from the end of a flush's dispatch to the end of its
+    completion, as the JAX engine counts them) and the host spans of
+    the two stages; paged, the pager's host-clock spans. Then one
+    mechanism check per engine at depth 2 (`held`): each flush's device
+    work held PIPE_HOLD_CYCLES longer, answers still equal; on a flat
+    table two flushes must then be in flight (a dispatch that waited on
+    the stream or the device would keep one). A paged engine's pager
+    copies a demoted frame to the host inside dispatch, which waits on
+    the stream: its count is reported, not required."""
+    snap, calls, want, csnap = reference
+    results = {}
+    with _clock.freeze(NOW) as clk:
+        for name, layout, paged, mesh in _edge_configs(size):
+            for turn, depth in enumerate((1, 2, 2, 1, 2)):
+                held = turn == 4
+                eng = _edge_engine(size, layout, paged, mesh, pipeline_depth=depth)
+                try:
+                    eng.restore(snap)
+                    st0 = eng.stats()
+                    spans = _PagerSpans(eng._pager) if paged else None
+                    stages = _StageSpans(eng, PIPE_HOLD_CYCLES if held else 0)
+                    sync()
+                    cuda_decide.reset_launches()
+                    got, secs, _ = _serve(V1Service(eng), calls, clk, spans)
+                    launches = dict(cuda_decide.CONFIG_LAUNCHES)
+                    st = eng.stats()
+                    psnap = eng.snapshot()
+                finally:
+                    eng.close()
+                decisions = sum(len(c) for c in calls)
+                res = {"phase": "pipeline", "size": size.name, "kernel": name, "mesh": mesh,
+                       "paged": paged, "pipeline_depth": depth, "turn": turn, "held": held,
+                       "hold_cycles": PIPE_HOLD_CYCLES if held else 0,
+                       "response_mismatches": sum(a != b for gc, wc in zip(got, want)
+                                                  for a, b in zip(gc, wc)),
+                       "snapshot_columns_differing": _snap_diff(psnap, csnap),
+                       "flushes": st["flushes"] - st0["flushes"],
+                       "waves": st["waves"] - st0["waves"], "launches": launches[name],
+                       "inflight_max": st["inflight_max"], **stages.summary(),
+                       "decisions_per_s": decisions / secs, "seconds": secs}
+                if paged:
+                    res.update({k: st[k] - st0[k] for k in ("promotes", "demotes", "binds")})
+                    res.update(ensure_resident_s=spans.s["ensure_resident"],
+                               demote_s=spans.s["demote"],
+                               promote_s=spans.s["_promote_one"] - spans.s["demote"])
+                del psnap
+                emit(res)
+                if res["response_mismatches"] or res["snapshot_columns_differing"]:
+                    raise AssertionError(f"{name}: depth {depth} disagrees with the CPU engine")
+                if res["launches"] != res["waves"]:
+                    raise AssertionError(f"{name}: kernel launches do not match the waves")
+                if held and not paged and res["inflight_max"] < 2:
+                    raise AssertionError(f"{name}: with the device the bottleneck, depth 2 "
+                                         "never had two flushes in flight")
+                results[(name, size.name, turn)] = res
+                free_device()
+    return results
+
+
 def run_size(rng, size: Size, card: str):
     """Kernel checks and times for each wave, scan and sharded
     configuration of the size, then its main path and its mesh main
@@ -1494,6 +1934,8 @@ def run_size(rng, size: Size, card: str):
     main, reference = phase_main_path(rng, image, size)
     del image
     mesh_main = phase_mesh_main_path(size, reference)
+    phase_edge_main_path(size, reference)
+    phase_pipeline(size, reference)
     del reference
     return ({k: (err, times, main[k]) for k, (err, times) in checked.items()}, scans,
             meshes, mesh_main)

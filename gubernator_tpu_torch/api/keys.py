@@ -67,15 +67,25 @@ def key_hash128_batch(
     if num_groups < 1:
         raise ValueError("num_groups must be >= 1")
     encoded = [k.encode("utf-8") for k in keys]
-    n = len(encoded)
-    offsets = np.zeros(n + 1, dtype=np.int64)
+    offsets = np.zeros(len(encoded) + 1, dtype=np.int64)
     np.cumsum([len(e) for e in encoded], out=offsets[1:])
+    return key_hash128_batch_raw(b"".join(encoded), offsets, num_groups)
+
+
+def key_hash128_batch_raw(
+    key_data: bytes, offsets: np.ndarray, num_groups: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """`key_hash128_batch` over keys already concatenated as UTF-8 bytes,
+    key i at key_data[offsets[i]:offsets[i + 1]] (the wire columns'
+    `key_data` / `key_offsets`): one native call, no per-key Python."""
+    if num_groups < 1:
+        raise ValueError("num_groups must be >= 1")
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    n = len(offsets) - 1
     hi = np.empty(n, dtype=np.uint64)
     lo = np.empty(n, dtype=np.uint64)
     group = np.empty(n, dtype=np.int32)
-    _lib().guber_hash128_batch(
-        b"".join(encoded), offsets, n, num_groups, hi, lo, group
-    )
+    _lib().guber_hash128_batch(key_data, offsets, n, num_groups, hi, lo, group)
     return hi.view(np.int64), lo.view(np.int64), group
 
 

@@ -43,6 +43,9 @@ TARGETS = {
     "decide_lane_host": ("g++", ("decide_lane_host.cc",), ("decide_lane.cuh",)),
     # MurmurHash3 x64-128 key hasher (host)
     "guberhash": ("g++", ("guberhash.cc",), ()),
+    # GetRateLimitsReq parse / GetRateLimitsResp build for the columnar
+    # edge (host; wire.py)
+    "wirepath": ("g++", ("wirepath.cc",), ()),
 }
 
 _lock = threading.Lock()

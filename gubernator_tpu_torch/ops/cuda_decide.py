@@ -14,12 +14,19 @@ a paged one; the sharded kernel replaces the mesh tier's per-shard
 a paged mesh's frames. See the sources for their design and bound:
 every kernel runs a team of threads per lane (the ways rounded up to a
 power of two, at most 32). The wave and sharded kernels add their 9
-sums into a buffer that the launch before on the same stream zeroed
-(one device operation per wave; the wrapper keeps each stream's chain
-of buffers, `_launch_summed`); the scan is one cooperative launch that
-zeroes its own (T, 9) sums (one device operation per scan) and stages
-each step's batch columns and page words before the barrier that
-starts the step.
+sums into a row that the launch before zeroed and zero the next row;
+the scan is one cooperative launch that zeroes its own (T, 9) sums (one
+device operation per scan) and stages each step's batch columns and
+page words before the barrier that starts the step.
+
+Every wave and sharded launch goes through `WaveFlush`, the one launch
+path: one flush's batch checked once and its outputs in one
+allocation, whose sums block one memset zeroes, the table checked once
+per engine (`TableMemo`), the decisions read back behind one CUDA
+event. Per wave that leaves pointer arithmetic, one argument struct
+and the C call. The one-wave wrappers (`decide_flat`, `decide_paged`,
+`decide_sharded` and their `_with_scan` forms) are a flush of one wave
+whose outputs are viewed back as a `DecideOutput`.
 
 Dispatch is by the table's device and nothing else:
 
@@ -233,16 +240,14 @@ def _outputs(shape, dev, freed_dtype=torch.bool, scal=None):
     return out, scan, ptrs
 
 
-def _wave_args(data, batch, now, ways, b, ptrs, page_map, gpp, next_scal=None) -> _WaveArgs:
-    """The wave's arguments: `ptrs` as `_outputs` gives them, and the
-    (9,) sums the launch zeroes for the stream's next one (the wave and
-    sharded kernels only)."""
+def _wave_args(data, batch, now, ways, b, ptrs, page_map, gpp) -> _WaveArgs:
+    """The arguments of a scan, or of a wave run by the lane code on the
+    host: `ptrs` as `_outputs` gives them, no next sums row."""
     cols = [getattr(batch, f).data_ptr() for f in _BATCH_DTYPES]
     paged = page_map is not None
     return _WaveArgs(
         data.data_ptr(), *cols, *(t.data_ptr() if t is not None else None for t in ptrs),
-        page_map.data_ptr() if paged else None,
-        next_scal.data_ptr() if next_scal is not None else None,
+        page_map.data_ptr() if paged else None, None,
         data.shape[0], int(now), ways, b,
         gpp if paged else 0, page_map.shape[0] if paged else 0,
     )
@@ -287,36 +292,6 @@ def _count(name: str) -> None:
     _tls.launches = thread_launches() + 1
 
 
-# (device index, stream handle) -> the zeroed (9,) sums of the next wave
-# or sharded launch on that stream
-_SUMS = {}
-_sums_lock = threading.Lock()
-
-
-def _launch_summed(dev, shape, freed_dtype, launch):
-    """One wave or sharded launch on the current stream of `dev` with
-    its sums chained: the launch adds its 9 sums into the stream's zeroed
-    buffer (made zero here for the stream's first launch) and zeroes a
-    new one, which becomes the stream's buffer for its next launch (the
-    kernel does both: no memset, one device operation per wave). One
-    lock holds the chain from the buffer's taking to the launch, so two
-    host threads on one stream never add into one buffer, and each
-    stream has its own chain. `launch(stream, ptrs, next_scal)` returns
-    the C call's code; returns (out, scan, code)."""
-    with torch.cuda.device(dev), _sums_lock:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        key = (dev.index, stream)
-        scal = _SUMS.get(key)
-        if scal is None:
-            scal = torch.zeros(N_SCAL, dtype=torch.int64, device=dev)
-        nxt = torch.empty(N_SCAL, dtype=torch.int64, device=dev)
-        out, scan, ptrs = _outputs(shape, dev, freed_dtype, scal)
-        rc = launch(stream, ptrs, nxt)
-        # a refused launch ran nothing: the stream keeps its zeroed buffer
-        _SUMS[key] = nxt if rc == 0 else scal
-    return out, scan, rc
-
-
 def _check_vector_rows(data, layout: str) -> None:
     """The wave and sharded kernels read and write a fused row as five
     16-byte vectors: the table must start on a 16-byte boundary (every
@@ -331,33 +306,21 @@ def _wave(data, page_map, batch, now, *, layout, ways, gpp):
     dev = data.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"decide runs on cuda or cpu, not {dev}")
-    b = _check(data, batch, ways, layout, page_map, gpp)
     if dev.type == "cpu":
+        _check(data, batch, ways, layout, page_map, gpp)
         return fused.wave_plain(
             _CODECS[layout], data, page_map, batch, now, ways=ways, gpp=gpp
         )
-    lib = _decide_lib()
-    _check_vector_rows(data, layout)
-    if b == 0:
-        out, scan, ptrs = _outputs((b,), dev)
-        ptrs[8].zero_()
-        return out, scan
-    paged = page_map is not None
+    return _one_wave(data, page_map, batch, now, layout=layout, ways=ways, gpp=gpp)
 
-    def launch(stream, ptrs, nxt):
-        args = _wave_args(data, batch, now, ways, b, ptrs, page_map, gpp, nxt)
-        return lib.guber_decide_wave(
-            ctypes.byref(args), _LAYOUT_CODE[layout], int(paged), stream
-        )
 
-    out, scan, rc = _launch_summed(dev, (b,), torch.bool, launch)
-    if rc != 0:
-        msg = lib.guber_cuda_error_string(rc).decode()
-        raise RuntimeError(
-            f"{config_name(layout, paged)} launch failed: CUDA error {rc} ({msg})"
-        )
-    _count(config_name(layout, paged))
-    return out, scan
+def _one_wave(data, page_map, batch, now, *, layout, ways, gpp, n_shards=0):
+    """A one-wave wrapper on the card: a `WaveFlush` of one span (its
+    batch and the table checked, its sums row zeroed by the flush's
+    memset), launched, its outputs viewed back as (out, scan)."""
+    flush = WaveFlush(batch, None, TableMemo())
+    flush.launch(0, data, page_map, now, layout=layout, ways=ways, gpp=gpp, n_shards=n_shards)
+    return flush.wave_outputs(0, torch.int32 if n_shards else torch.bool)
 
 
 def _scan(data, page_map, batches, nows, *, layout, ways, gpp) -> DecideOutput:
@@ -440,6 +403,254 @@ def decide_paged(
     """`decide_paged_with_scan` without the WaveScan sums."""
     pt, out, _scan = decide_paged_with_scan(pt, batch, now, layout=layout, ways=ways, gpp=gpp)
     return pt, out
+
+
+class TableMemo:
+    """The table an engine's waves last ran on, validated: `check` runs
+    the table checks of `_wave` (and of `decide_sharded` with
+    `n_shards`) again only when the table's identity changes (its
+    tensor, storage, shape or page map, the layout, ways, page geometry
+    or shard count). One per engine."""
+
+    __slots__ = ("key", "groups_per_shard")
+
+    def __init__(self):
+        self.key = None
+        self.groups_per_shard = 0
+
+    def check(self, data, page_map, *, layout, ways, gpp, n_shards) -> None:
+        key = (id(data), data.data_ptr(), data.shape, id(page_map), layout, ways,
+               gpp, n_shards)
+        if key == self.key:
+            return
+        _check_table(data, ways, layout, page_map, gpp)
+        if data.device.type == "cuda":
+            _check_vector_rows(data, layout)
+        self.groups_per_shard = _check_shards(data, n_shards, ways) if n_shards else 0
+        self.key = key
+
+
+# Sums of a wave in a flush's outputs: (hits, misses, unexpired
+# evictions, over-limit) at _S_HITS.._S_OVER, then the WaveScan sums.
+class WaveFlush:
+    """The waves of one flush, run one after another over one table:
+    the launch path of the engine (`runtime/engine.py`) and of the
+    one-wave wrappers (a flush of one wave).
+
+    `batch` holds every wave's lanes on the table's device (one
+    host-to-device copy, `batch_to_device`), wave w the contiguous span
+    `spans[w] = (offset, width)` of every column (None: one wave of all
+    of them); its columns are checked once, here. The outputs of all
+    the waves are ONE allocation,
+    wave w a span of each output column and row w of a (W + 1, 9) sums
+    block, zeroed once here (wave w adds into row w and zeroes row w + 1,
+    already zero: the kernels' chain of sums stays inside the flush).
+    The table is checked by the engine's `TableMemo`, again only when it
+    changed. So a wave's launch on the card is pointer arithmetic, one
+    argument struct and the C call, on the stream current when the
+    flush was made.
+
+    `read_back` queues, after the last wave, one copy of what the host
+    reads (status, limit, remaining, reset_time and the sums) into
+    pinned host memory and records one CUDA event; `host()` waits on
+    that event only, never on the stream or the device. The flush keeps
+    its device outputs referenced until then. On a CPU table each wave
+    runs the plain version into the same spans, and `host()` reads the
+    outputs in place."""
+
+    _INT64_READ = 3  # limit, remaining, reset_time: read back
+    _INT64_REST = 3  # slot, evicted_hi, evicted_lo: device only
+
+    def __init__(self, batch: RequestBatch, spans, memo: TableMemo):
+        dev = batch.key_hi.device
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"decide runs on cuda or cpu, not {dev}")
+        (lanes,) = _check_batch(batch, dev, 1)
+        if spans is None:
+            spans = [(0, lanes)]
+        for off, b in spans:
+            if off < 0 or b < 0 or off + b > lanes:
+                raise ValueError(f"wave span ({off}, {b}) outside the batch's {lanes} lanes")
+        self.batch, self.spans, self.memo = batch, list(spans), memo
+        self.device = dev
+        n_w = len(self.spans)
+        self._lanes = lanes
+        # [limit, remaining, reset_time | sums | status | pad | slot, ehi, elo | freed]
+        n_read_i64 = self._INT64_READ * lanes + (n_w + 1) * N_SCAL
+        self._read_bytes = 8 * n_read_i64 + lanes
+        rest_at = -(-self._read_bytes // 8) * 8
+        self._freed_at = rest_at + 8 * self._INT64_REST * lanes
+        buf = torch.empty(self._freed_at + 4 * lanes, dtype=torch.uint8, device=dev)
+        self._buf = buf
+        read = buf[:8 * n_read_i64].view(torch.int64)
+        self.limit, self.remaining, self.reset_time = (
+            read[k * lanes:(k + 1) * lanes] for k in range(self._INT64_READ))
+        self.sums = read[self._INT64_READ * lanes:].view(n_w + 1, N_SCAL)
+        self.status = buf[8 * n_read_i64:self._read_bytes].view(torch.int8)
+        rest = buf[rest_at:self._freed_at].view(torch.int64)
+        self.slot, self.evicted_hi, self.evicted_lo = (
+            rest[k * lanes:(k + 1) * lanes] for k in range(self._INT64_REST))
+        self.sums.zero_()
+        self._host = None
+        self._event = None
+        self._stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
+        # the lane columns' and outputs' base addresses, in kernel order
+        self._cols = [(getattr(batch, f).data_ptr(), getattr(batch, f).element_size())
+                      for f in _BATCH_DTYPES]
+        self._outs = [(t.data_ptr(), t.element_size()) for t in (
+            self.status, self.limit, self.remaining, self.reset_time, self.slot,
+            self.evicted_hi, self.evicted_lo)]
+        self._sums_ptr = self.sums.data_ptr()
+        self._freed_ptr = buf.data_ptr() + self._freed_at
+
+    def freed(self, dtype=torch.bool) -> torch.Tensor:
+        """The `freed` column: bool from the wave kernel, int32 from the
+        sharded one (the psum's type)."""
+        n = self._lanes * (4 if dtype == torch.int32 else 1)
+        return self._buf[self._freed_at:self._freed_at + n].view(dtype)
+
+    def wave_batch(self, w: int) -> RequestBatch:
+        off, b = self.spans[w]
+        return RequestBatch(*(c[off:off + b] for c in self.batch))
+
+    def wave_outputs(self, w: int, freed_dtype=torch.bool) -> Tuple[DecideOutput, WaveScan]:
+        """Wave w's outputs, views of the flush's, as the one-wave
+        wrappers return them: (DecideOutput, WaveScan)."""
+        off, b = self.spans[w]
+        s = slice(off, off + b)
+        row = self.sums[w]
+        out = DecideOutput(
+            status=self.status[s], limit=self.limit[s], remaining=self.remaining[s],
+            reset_time=self.reset_time[s], slot=self.slot[s], evicted_hi=self.evicted_hi[s],
+            evicted_lo=self.evicted_lo[s], freed=self.freed(freed_dtype)[s],
+            hits=row[_S_HITS], misses=row[_S_MISSES], unexpired_evictions=row[_S_EVICTS],
+            over_limit=row[_S_OVER],
+        )
+        return out, WaveScan(*(row[k] for k in range(4, N_SCAL)))
+
+    def launch(self, w: int, data, page_map, now: int, *, layout: str, ways: int,
+               gpp: int = 0, n_shards: int = 0) -> None:
+        """Wave w over the rows `data` (the layout's table; a paged
+        table's frames with its `page_map`), in place, into the flush's
+        outputs: the wave kernel, or with `n_shards` the sharded kernel
+        over that many shards. CPU rows: the plain version."""
+        if data.device != self.device:
+            raise ValueError(f"the table is on {data.device}, the flush on {self.device}")
+        off, b = self.spans[w]
+        if self.device.type == "cpu":
+            wb = self.wave_batch(w)
+            if n_shards:
+                out, scan = decide_sharded(data, page_map, wb, now, layout=layout, ways=ways,
+                                           n_shards=n_shards, gpp=gpp)
+            else:
+                out, scan = _wave(data, page_map, wb, now, layout=layout, ways=ways, gpp=gpp)
+            self._store(w, off, b, out, scan)
+            return
+        self.memo.check(data, page_map, layout=layout, ways=ways, gpp=gpp, n_shards=n_shards)
+        if b == 0:
+            return  # nothing to launch; its sums row stays zero
+        lib = _decide_lib()
+        paged = int(page_map is not None)
+        args = self.args(w, data, page_map, now, ways=ways, gpp=gpp, n_shards=n_shards)
+        if n_shards:
+            name = sharded_name(layout)
+            rc = lib.guber_decide_sharded(ctypes.byref(args), _LAYOUT_CODE[layout], paged,
+                                          self._stream)
+        else:
+            name = config_name(layout, bool(paged))
+            rc = lib.guber_decide_wave(ctypes.byref(args), _LAYOUT_CODE[layout], paged,
+                                       self._stream)
+        if rc != 0:
+            msg = lib.guber_cuda_error_string(rc).decode()
+            raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+        _count(name)
+
+    def args(self, w: int, data, page_map, now: int, *, ways: int, gpp: int = 0,
+             n_shards: int = 0):
+        """Wave w's kernel arguments over checked rows `data`: a
+        `_WaveArgs`, or with `n_shards` a `_ShardArgs` (the groups per
+        shard from the memo's check). Pointer arithmetic only."""
+        off, b = self.spans[w]
+        paged = page_map is not None
+        wave = _WaveArgs(
+            data.data_ptr(), *(p + off * s for p, s in self._cols),
+            *(p + off * s for p, s in self._outs),
+            None if n_shards else self._freed_ptr + off,
+            self._sums_ptr + w * N_SCAL * 8,
+            page_map.data_ptr() if paged else None,
+            self._sums_ptr + (w + 1) * N_SCAL * 8,
+            data.shape[0], int(now), ways, b,
+            gpp if paged else 0, page_map.shape[0] if paged else 0,
+        )
+        if not n_shards:
+            return wave
+        gp = self.memo.groups_per_shard
+        return _ShardArgs(wave, self._freed_ptr + 4 * off, gp * ways, n_shards, gp)
+
+    def _store(self, w, off, b, out: DecideOutput, scan: WaveScan) -> None:
+        s = slice(off, off + b)
+        for dst, src in ((self.status, out.status), (self.limit, out.limit),
+                         (self.remaining, out.remaining), (self.reset_time, out.reset_time),
+                         (self.slot, out.slot), (self.evicted_hi, out.evicted_hi),
+                         (self.evicted_lo, out.evicted_lo)):
+            dst[s] = src
+        self.freed(out.freed.dtype)[s] = out.freed
+        self.sums[w] = torch.stack([
+            out.hits, out.misses, out.unexpired_evictions, out.over_limit, *scan,
+        ]).to(torch.int64)
+
+    def read_back(self) -> None:
+        """Queue the copy of what the host reads behind the waves (CUDA:
+        into pinned memory, then one event)."""
+        if self.device.type == "cpu":
+            self._host = self._buf[:self._read_bytes].numpy()
+            return
+        host = torch.empty(self._read_bytes, dtype=torch.uint8, pin_memory=True)
+        host.copy_(self._buf[:self._read_bytes], non_blocking=True)
+        self._event = torch.cuda.Event()
+        self._event.record()
+        self._host = host.numpy()
+
+    def host(self) -> list:
+        """Per wave (status, remaining, reset_time, limit as numpy
+        arrays; hits, misses, unexpired evictions, over-limit as ints),
+        after the flush's event (CUDA)."""
+        if self._host is None:
+            raise RuntimeError("read_back() first")
+        if self._event is not None:
+            self._event.synchronize()
+        lanes, n_w = self._lanes, len(self.spans)
+        i64 = self._host[:self._read_bytes - lanes].view(np.int64)
+        limit, remaining, reset_time = (i64[k * lanes:(k + 1) * lanes] for k in range(3))
+        sums = i64[3 * lanes:].reshape(n_w + 1, N_SCAL)[:, :4].tolist()
+        status = self._host[self._read_bytes - lanes:].view(np.int8)
+        out = []
+        for w, (off, b) in enumerate(self.spans):
+            s = slice(off, off + b)
+            out.append((status[s], remaining[s], reset_time[s], limit[s], *sums[w]))
+        return out
+
+
+def flush_lane_code_on_host(flush: WaveFlush, w: int, data, page_map, now: int, *,
+                            layout: str, ways: int, gpp: int = 0, n_shards: int = 0) -> None:
+    """Tests only: wave w of `flush` (CPU tensors) through the kernels'
+    lane code built by g++ (as `decide_lane_code_on_host` and
+    `decide_sharded_lane_code_on_host` run it), with the argument struct
+    the card's launch gets (`WaveFlush.args`): the flush's spans, sums
+    rows and output pointers are held against the plain version on the
+    CPU. No serving path calls this."""
+    if data.device.type != "cpu":
+        raise ValueError("flush_lane_code_on_host takes CPU tensors")
+    flush.memo.check(data, page_map, layout=layout, ways=ways, gpp=gpp, n_shards=n_shards)
+    lib = _build.load("decide_lane_host")
+    fn = lib.guber_decide_sharded_host if n_shards else lib.guber_decide_wave_host
+    fn.argtypes = [ctypes.POINTER(_ShardArgs if n_shards else _WaveArgs), ctypes.c_int,
+                   ctypes.c_int]
+    fn.restype = ctypes.c_int
+    args = flush.args(w, data, page_map, now, ways=ways, gpp=gpp, n_shards=n_shards)
+    rc = fn(ctypes.byref(args), _LAYOUT_CODE[layout], int(page_map is not None))
+    if rc != 0:
+        raise RuntimeError(f"decide_lane_host failed ({rc})")
 
 
 def decide_lane_code_on_host(
@@ -579,12 +790,11 @@ def _check_shards(data, n_shards: int, ways: int) -> int:
     return gp
 
 
-def _shard_args(data, batch, now, ways, b, ptrs, page_map, gpp, n_shards, gp,
-                next_scal=None) -> _ShardArgs:
-    """The sharded wave's arguments: the wave's, whose bool `freed`
-    pointer is left null, and the int32 `freed` and the shard geometry."""
-    wave = _wave_args(data, batch, now, ways, b, ptrs[:7] + [None, ptrs[8]], page_map, gpp,
-                      next_scal)
+def _shard_args(data, batch, now, ways, b, ptrs, page_map, gpp, n_shards, gp) -> _ShardArgs:
+    """The sharded wave's arguments for the lane code on the host: the
+    wave's, whose bool `freed` pointer is left null, and the int32
+    `freed` and the shard geometry."""
+    wave = _wave_args(data, batch, now, ways, b, ptrs[:7] + [None, ptrs[8]], page_map, gpp)
     return _ShardArgs(wave, ptrs[7].data_ptr(), gp * ways, n_shards, gp)
 
 
@@ -605,33 +815,15 @@ def decide_sharded(
     dev = data.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"decide runs on cuda or cpu, not {dev}")
-    b = _check(data, batch, ways, layout, page_map, gpp)
-    gp = _check_shards(data, n_shards, ways)
     if dev.type == "cpu":
+        _check(data, batch, ways, layout, page_map, gpp)
+        _check_shards(data, n_shards, ways)
         return fused.sharded_plain(
             _CODECS[layout], data, page_map, batch, now, ways=ways,
             n_shards=n_shards, gpp=gpp,
         )
-    lib = _decide_lib()
-    _check_vector_rows(data, layout)
-    if b == 0:
-        out, scan, ptrs = _outputs((b,), dev, torch.int32)
-        ptrs[8].zero_()
-        return out, scan
-    name = sharded_name(layout)
-
-    def launch(stream, ptrs, nxt):
-        args = _shard_args(data, batch, now, ways, b, ptrs, page_map, gpp, n_shards, gp, nxt)
-        return lib.guber_decide_sharded(
-            ctypes.byref(args), _LAYOUT_CODE[layout], int(page_map is not None), stream
-        )
-
-    out, scan, rc = _launch_summed(dev, (b,), torch.int32, launch)
-    if rc != 0:
-        msg = lib.guber_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
-    _count(name)
-    return out, scan
+    return _one_wave(data, page_map, batch, now, layout=layout, ways=ways, gpp=gpp,
+                     n_shards=n_shards)
 
 
 def decide_sharded_lane_code_on_host(

@@ -28,6 +28,9 @@ class Kernels(NamedTuple):
     create: object  # (num_groups, ways, device) -> table
     decide: object  # (table, batch, now, ways) -> (table, DecideOutput), in place
     decide_scan: object  # (table, (T, B) batches, (T,) nows, ways) -> (table, stacked outputs)
+    # (table, cuda_decide.WaveFlush, w, now, ways) -> table: wave w of a
+    # flush into the flush's outputs, in place (the engine's launch path)
+    run_wave: object
     load: object  # (device) -> None: build what decide needs there
     to_wide: object  # table -> SlotTable on the table's device
     from_wide: object  # (SlotTable, device) -> table
@@ -41,11 +44,16 @@ def _make(layout: str, module, table_cls, gather_rows) -> Kernels:
     def decide_scan(table, batches, nows, ways):
         return cuda_decide.decide_scan_flat(table, batches, nows, layout=layout, ways=ways)
 
+    def run_wave(table, flush, w, now, ways):
+        flush.launch(w, table.data, None, now, layout=layout, ways=ways)
+        return table
+
     return Kernels(
         layout=layout,
         create=table_cls.create,
         decide=decide,
         decide_scan=decide_scan,
+        run_wave=run_wave,
         load=cuda_decide.load,
         to_wide=module.unpack_table,
         from_wide=module.pack_table,

@@ -77,6 +77,7 @@ class PagedKernels(NamedTuple):
     create: object  # (*ignored) -> PagedTable: zeroed frames, empty map
     decide: object  # (pt, batch, now, ways) -> (pt, DecideOutput), in place
     decide_scan: object  # (pt, (T, B) batches, (T,) nows, ways) -> (pt, stacked outputs)
+    run_wave: object  # (pt, WaveFlush, w, now, ways) -> pt: wave w of a flush, in place
     load: object  # (device) -> None: build what decide needs there
     to_wide: object  # pt -> SlotTable view of the PHYSICAL table
     from_wide: object  # raises NotImplementedError
@@ -144,6 +145,12 @@ def make_paged_kernels(
             pt, batches, nows, layout=layout, ways=ways, gpp=gpp
         )
 
+    def _run_wave(pt, flush, w, now, w_=ways):
+        if w_ != ways:
+            raise ValueError(f"this paged table has {ways} ways, not {w_}")
+        flush.launch(w, pt.data.data, pt.page_map, now, layout=layout, ways=ways, gpp=gpp)
+        return pt
+
     def _bind_page(pt, lp, pp):
         _frame(pt, pp).zero_()
         pt.page_map[int(lp)] = int(pp)
@@ -184,6 +191,7 @@ def make_paged_kernels(
         create=_create,
         decide=_decide,
         decide_scan=_decide_scan,
+        run_wave=_run_wave,
         load=base.load,
         to_wide=lambda pt: base.to_wide(pt.data),
         from_wide=_from_wide,

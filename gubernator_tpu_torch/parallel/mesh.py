@@ -131,6 +131,14 @@ def make_sharded_decide(mesh: Mesh, num_groups: int, ways: int = 8,
     return decide_fn
 
 
+def _run_sharded(table, flush, w, data, page_map, now, layout, ways, n_shards, gpp):
+    """Wave w of an engine flush (`cuda_decide.WaveFlush`) as one
+    sharded wave over `n_shards` shards of `data` (the rows of `table`),
+    in place; returns `table`."""
+    flush.launch(w, data, page_map, now, layout=layout, ways=ways, gpp=gpp, n_shards=n_shards)
+    return table
+
+
 def _no_scan(*_a, **_k):
     raise NotImplementedError(
         "the mesh tier serves wave-at-a-time sharded programs; there is no "
@@ -166,6 +174,8 @@ def make_mesh_kernels(mesh: Mesh, layout: str, num_groups: int, ways: int = 8, *
             create=lambda *_a, **_k: create_sharded_table(mesh, num_groups, ways, layout),
             decide=lambda t, b, now, ways_=ways: decide_fn(t, b, now),
             decide_scan=_no_scan,
+            run_wave=lambda t, fl, w, now, ways_=ways: _run_sharded(
+                t, fl, w, t.data, None, now, layout, ways, n_dev, 0),
             from_wide=lambda wide, _device=None: base.from_wide(wide, mesh.device),
         )
     return _make_mesh_paged_kernels(mesh, layout, num_groups, ways, page_groups, page_budget)
@@ -195,5 +205,10 @@ def _make_mesh_paged_kernels(mesh: Mesh, layout: str, num_groups: int, ways: int
         )
         return pt, out
 
-    return PK._replace(decide=_decide, decide_scan=_no_scan)
+    def _run_wave(pt, flush, w, now, w_=ways):
+        if w_ != ways:
+            raise ValueError(f"this paged table has {ways} ways, not {w_}")
+        return _run_sharded(pt, flush, w, pt.data.data, pt.page_map, now, layout, ways, n_dev, gpp)
+
+    return PK._replace(decide=_decide, decide_scan=_no_scan, run_wave=_run_wave)
 

@@ -1,11 +1,13 @@
 """Device engine: micro-batch assembly over the device-resident table.
 
 The port of `gubernator_tpu/runtime/engine.py` (`MeshEngine`, and
-`DeviceEngine`, the engine at mesh shape (1,)) for the object path with
-a serial pump. Requests accumulate into waves; one decide call per wave
-updates the table in place on the device (a CUDA kernel on a CUDA
-table). The topology (runtime/topology.py) binds the kernels: one
-table's, or the owner-sharded mesh's (runtime/ici_engine.py IciEngine).
+`DeviceEngine`, the engine at mesh shape (1,)): the object path, fed by
+a pump, and the columnar path (`check_columns`), fed by the serving
+edge (service/fastpath.py). Requests accumulate into waves; one decide
+call per wave updates the table in place on the device (a CUDA kernel
+on a CUDA table). The topology (runtime/topology.py) binds the kernels:
+one table's, or the owner-sharded mesh's (runtime/ici_engine.py
+IciEngine).
 
 Micro-batching (reference peer_client.go:284-337; config.go:126-128):
 flush at `batch_limit` items or after `batch_wait_s`, whichever comes
@@ -18,25 +20,50 @@ The assembler places requests into *waves*: a request whose slot group
 is taken in a wave goes to the next one, and waves run as sequential
 decide calls. Group granularity also makes every wave's row stores
 disjoint. A flush holds at most `max_waves` waves; the rest carries to
-the next flush in arrival order.
+the next flush in arrival order. The columnar path assigns the same
+waves with array operations (`_assemble_column_waves`).
+
+The launch path of a flush (`_execute_waves`): every wave's batch
+reaches the device in ONE host-to-device copy, every wave's outputs are
+spans of ONE allocation, the table is checked once per engine
+(`cuda_decide.TableMemo`), and the decisions come back in one copy to
+pinned host memory behind ONE CUDA event (`cuda_decide.WaveFlush`).
+
+Two-stage pipeline (`pipeline_depth`, JAX `engine.py` `_dispatch` /
+`_complete`): the pump's `_dispatch` assembles, encodes and launches a
+flush and hands its ticket to a completion thread, which waits on the
+ticket's event, resolves its futures and sweeps finished bulks, in
+dispatch order; the pump meanwhile assembles the next flush. At most
+`pipeline_depth` tickets are in flight (a semaphore taken before each
+dispatch). Depth 1 is the serial pump (dispatch, then complete inline).
+Decisions are the same at every depth: waves run in dispatch order on
+one stream.
+
+Streams: on a card every table read and write of an engine runs on ONE
+CUDA stream the engine owns (`_on_stream`): the pump, `check_columns`
+callers, the pager, snapshots and restores all enter it under the
+table lock, so launches from different threads stay ordered, and the
+caching allocator only reuses an engine's blocks on that stream.
 
 Paged table (`page_groups > 0`, docs/architecture.md "Paged table"):
 the device holds `page_budget` frames of `page_groups` groups behind a
 page map (ops/paged.py), and the host tier holds demoted pages
-(runtime/pager.py). Before each wave's copy to the device and its
-decide, the pager makes every page the wave touches resident, demoting
-the least recently touched pages when no frame is free. Pages demote
-only on that demand: the JAX engine's background demoter waits for the
-table census.
+(runtime/pager.py). Before each wave's decide the pager makes every
+page the wave touches resident, demoting the least recently touched
+pages when no frame is free. Pages demote only on that demand: the JAX
+engine's background demoter waits for the table census. A demote's
+copy to the host waits for every wave queued on the stream, tickets in
+flight included: it stays correct and serializes the pipeline.
 
-Thread model: callers on any thread enqueue; one pump thread assembles,
-runs the waves, reads the decisions back and resolves futures. Only the
-pump touches the table during serving (`snapshot`/`restore` take the
-same lock, which also guards the pager).
+Thread model: callers on any thread enqueue; one pump thread assembles
+and launches; the completion thread (depth >= 2) reads the decisions
+back and resolves futures. The table lock guards the table and the
+pager (`snapshot`, `restore` and `check_columns` take it too).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -47,7 +74,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from gubernator_tpu_torch.api.keys import key_hash128_batch
+from gubernator_tpu_torch.api.keys import key_hash128_batch, key_hash128_batch_raw
 from gubernator_tpu_torch.api.types import (
     Behavior,
     ERR_ENGINE_DRAINING,
@@ -56,13 +83,14 @@ from gubernator_tpu_torch.api.types import (
     validate_request,
 )
 from gubernator_tpu_torch.ops import cuda_decide
+from gubernator_tpu_torch.models.bucket import MAX_COUNT, MAX_DURATION_MS
 from gubernator_tpu_torch.ops.encode import EncodeError, encode_one, encode_rows
 from gubernator_tpu_torch.ops.kernels import LAYOUTS
 from gubernator_tpu_torch.ops.layout import (
+    BATCH_DTYPES,
     SLOT_DTYPES,
     RequestBatch,
     SlotTable,
-    batch_prefix,
     batch_to_device,
 )
 from gubernator_tpu_torch.runtime.pager import wide_zeros
@@ -105,6 +133,11 @@ class EngineConfig:
     # Background demoter cadence. The demoter is gated by the table
     # census, which is not ported: only 0 (demand demotes) is served.
     page_demote_interval_s: float = 0.0
+    # Flushes in flight (GUBER_PIPELINE_DEPTH): 1 is the serial pump
+    # (dispatch, read back, resolve, repeat); >= 2 adds a completion
+    # thread that reads tickets back in dispatch order while the pump
+    # assembles the next flush. Decisions are the same at every depth.
+    pipeline_depth: int = 2
 
 
 class _WaveAssembler:
@@ -181,8 +214,31 @@ class _Bulk:
             ])
 
 
+class _FlushTicket:
+    """One dispatched flush on its way from `_dispatch` to `_complete`
+    (consumed once, in dispatch order): the intake, where each item's
+    answer lies, and the flush's outputs, whose copy to the host is
+    queued behind one event."""
+
+    __slots__ = (
+        "items",       # [(req, future-like)]: the flush's intake
+        "placements",  # per item: (wave, lane), or None (resolved or carried)
+        "flush",       # cuda_decide.WaveFlush: the outputs and their read-back
+        "waves",       # wave count
+        "launches",    # kernel launches made by the waves
+    )
+
+    def __init__(self, **kw):
+        for k in self.__slots__:
+            setattr(self, k, kw.get(k))
+
+
 _FLUSH = object()
 _STOP = object()
+# On close: how long the pump keeps serving entries that raced the
+# shutdown before failing them with ERR_ENGINE_DRAINING (the JAX
+# engine's default).
+DRAIN_TIMEOUT_S = 5.0
 
 
 class MeshEngine:
@@ -227,11 +283,17 @@ class MeshEngine:
                 "page_demote_interval_s > 0: the background demoter comes "
                 "with the table-census slice; pass 0 (pages demote on demand)"
             )
+        if cfg.pipeline_depth < 1:
+            raise ValueError("pipeline_depth must be >= 1")
         self.cfg = cfg
         self.now_fn = now_fn
-        self.K, self._pager = self.topo.build_kernels(cfg)
-        self.K.load(self.device)
-        self.table = self.K.create(cfg.num_groups, cfg.ways, self.device)
+        # The engine's one stream on a card (see the module docstring).
+        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        with self._on_stream():
+            self.K, self._pager = self.topo.build_kernels(cfg)
+            self.K.load(self.device)
+            self.table = self.K.create(cfg.num_groups, cfg.ways, self.device)
+        self._memo = cuda_decide.TableMemo()
         # the GLOBAL replica tier: None on every topology until it is ported
         self._rtier = self.topo.build_replica(cfg)
 
@@ -240,18 +302,42 @@ class MeshEngine:
         self._key_strings: Dict[Tuple[int, int], str] = {}
         self._stats_lock = threading.Lock()
         self._stats = dict(
-            flushes=0, waves=0, kernel_launches=0, requests=0,
+            flushes=0, columnar_flushes=0, waves=0, kernel_launches=0, requests=0,
             cache_hits=0, cache_misses=0, unexpired_evictions=0, over_limit=0,
+            inflight_max=0,
         )
 
         self._queue: "queue.SimpleQueue" = queue.SimpleQueue()
         self._running = True
+        self._draining = False
         self._bulks: List[_Bulk] = []
         self._bulks_lock = threading.Lock()
+        self._pipe_depth = int(cfg.pipeline_depth)
+        self._pipe_q: Optional["queue.SimpleQueue"] = None
+        self._pipe_thread: Optional[threading.Thread] = None
+        self._inflight = 0
+        if self._pipe_depth > 1:
+            # The semaphore's permits are the in-flight ring's slots (the
+            # pump takes one before it launches a flush); the queue
+            # carries tickets to the completion thread in dispatch order.
+            self._pipe_sem = threading.Semaphore(self._pipe_depth)
+            self._pipe_q = queue.SimpleQueue()
+            self._pipe_lock = threading.Lock()
+            self._pipe_thread = threading.Thread(
+                target=self._completion_loop, name=self.topo.thread_name + "-complete",
+                daemon=True,
+            )
+            self._pipe_thread.start()
         self._thread = threading.Thread(
             target=self._pump, name=self.topo.thread_name, daemon=True
         )
         self._thread.start()
+
+    def _on_stream(self):
+        """Enter the engine's stream (a card) or nothing (the CPU)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
 
     # -- public intake -------------------------------------------------------
 
@@ -303,12 +389,20 @@ class MeshEngine:
         return self.check_bulk(reqs).result()
 
     def close(self, timeout_s: float = 60.0) -> None:
-        """Serve everything queued before this call, then stop the pump.
-        Entries that race the shutdown fail with the typed retryable
+        """Serve everything queued before this call, then stop the pump
+        and the completion thread. The pump completes every flush in
+        flight first, then serves entries that raced the shutdown for up
+        to DRAIN_TIMEOUT_S; what is left fails with the typed retryable
         status (ERR_ENGINE_DRAINING)."""
         self._queue.put(_STOP)
         self._thread.join(timeout=timeout_s)
         self._running = False
+        comp = self._pipe_thread
+        if comp is not None and comp.is_alive():
+            # the pump sends _STOP after its drain; this one is a backstop
+            # for a wedged pump (the loop exits on the first it sees)
+            self._pipe_q.put(_STOP)
+            comp.join(timeout=timeout_s)
         while True:
             try:
                 entry = self._queue.get_nowait()
@@ -324,12 +418,16 @@ class MeshEngine:
             b.resolve()
 
     def stats(self) -> dict:
-        """Counters: flushes, waves, kernel_launches, requests, and the
-        decide metrics (cache hits/misses, unexpired evictions,
-        over-limit answers); with a paged table also the pager's
-        promotes, demotes, binds, resident_pages and host_pages."""
+        """Counters: flushes (object path), columnar_flushes
+        (`check_columns`), waves, kernel_launches, requests, the decide
+        metrics (cache hits/misses, unexpired evictions, over-limit
+        answers), inflight_max (the most flushes in flight at once: from
+        the end of a flush's dispatch to the end of its completion) and
+        pipeline_depth; with a paged table also the pager's promotes,
+        demotes, binds, resident_pages and host_pages."""
         with self._stats_lock:
             out = dict(self._stats)
+        out["pipeline_depth"] = self._pipe_depth
         pager = self._pager
         if pager is not None:
             out.update(
@@ -377,19 +475,53 @@ class MeshEngine:
                     break
             if batch:
                 carry = self._serve(batch)
-        # Shutdown: serve the carry and everything still queued (FIFO puts
-        # every entry enqueued before close() ahead of _STOP's successors).
+        # Shutdown: complete every flush in flight FIRST (dispatch order),
+        # then serve what is still queued within the drain budget, then
+        # fail the stragglers with the typed retryable status.
+        self._pipeline_quiesce()
+        carry = self._drain_tail(carry)
+        for _, fut in carry:
+            if not fut.done():
+                fut.set_result(RateLimitResp(error=ERR_ENGINE_DRAINING))
+        self._resolve_all_bulks()
+        if self._pipe_q is not None:
+            self._pipe_q.put(_STOP)
+
+    def _drain_tail(self, carry):
+        """Serve queue entries that raced the shutdown (entries enqueued
+        before close() were served by the main loop: the queue is FIFO)
+        and the wave-capped carry, completing each flush inline, until
+        DRAIN_TIMEOUT_S passes or nothing is left. Returns the pairs the
+        budget could not serve."""
+        deadline = time.monotonic() + DRAIN_TIMEOUT_S
         pending = list(carry)
-        while True:
-            try:
-                entry = self._queue.get_nowait()
-            except queue.Empty:
-                break
+
+        def pull(entry) -> None:
             if entry is not _STOP and entry is not _FLUSH:
                 self._extend(pending, entry)
-        while pending:
+
+        while time.monotonic() <= deadline:
+            while True:
+                try:
+                    pull(self._queue.get_nowait())
+                except queue.Empty:
+                    break
+            if not pending:
+                # idle: one short wait for a producer that raced the
+                # intake check, then stop
+                try:
+                    pull(self._queue.get(timeout=0.02))
+                except queue.Empty:
+                    break
+                continue
             batch = pending[: self.cfg.max_flush_items]
             pending = self._serve(batch) + pending[self.cfg.max_flush_items:]
+        while True:
+            try:
+                pull(self._queue.get_nowait())
+            except queue.Empty:
+                break
+        return pending
 
     def _extend(self, batch: list, entry) -> bool:
         """Add a queue entry (single pair or bulk); True if it asks for an
@@ -405,19 +537,25 @@ class MeshEngine:
         return bool(req.behavior & nb)
 
     def _serve(self, batch) -> list:
-        """One flush; never lets an error kill the pump. Returns carry."""
+        """One flush; never lets an error kill the pump. Returns carry.
+        Serial mode sweeps finished bulks here; pipelined mode leaves
+        that to the completion thread (the answers are not in yet)."""
         try:
             carry = self._process(batch)
         except Exception as e:
             for _, fut in batch:
                 if not fut.done():
                     fut.set_result(RateLimitResp(error=str(e)))
-            carry = []
-        self._sweep_bulks()
+            self._sweep_bulks()
+            return []
+        if not self._pipeline_active():
+            self._sweep_bulks()
         return carry
 
     def _sweep_bulks(self) -> None:
-        """Resolve bulk futures whose members have all been answered."""
+        """Resolve bulk futures whose members have all been answered
+        (the pump after each flush when serial; the completion thread
+        after each ticket when pipelined)."""
         done = []
         with self._bulks_lock:
             still = []
@@ -427,12 +565,113 @@ class MeshEngine:
         for b in done:
             b.resolve()
 
-    # -- one flush -----------------------------------------------------------
+    def _resolve_all_bulks(self) -> None:
+        """Shutdown tail: resolve every remaining bulk (members never
+        served answer ERR_ENGINE_DRAINING, see _Bulk.resolve)."""
+        with self._bulks_lock:
+            rest, self._bulks[:] = list(self._bulks), []
+        for b in rest:
+            b.resolve()
+
+    # -- the two-stage pipeline ------------------------------------------------
+
+    def _pipeline_active(self) -> bool:
+        """Tickets go to the completion thread while serving at depth
+        >= 2; the shutdown drain completes inline."""
+        return self._pipe_q is not None and not self._draining
 
     def _process(self, items: List[Tuple[RateLimitReq, object]]) -> list:
-        """Assemble + encode the flush on the host, run its waves, read
-        the decisions back, resolve the futures. Returns the (req,
-        future) pairs the wave cap deferred to the next flush."""
+        """One flush through both stages. Serial (depth 1, or draining):
+        dispatch, then complete inline. Pipelined: take a ring slot
+        (backpressure BEFORE launching more device work), dispatch, hand
+        the ticket to the completion thread and return, so the pump can
+        assemble the next flush while the device runs this one and the
+        completion thread reads the last one back. A flush counts as in
+        flight from the end of its dispatch (its waves queued) to the
+        end of its completion, as the JAX engine counts it: two in
+        flight means a flush was launched while the one before it had
+        not been answered. Returns the (req, future) pairs the wave cap
+        deferred."""
+        if not self._pipeline_active():
+            carry, ticket = self._dispatch(items)
+            if ticket is not None:
+                self._note_inflight(1)
+                self._complete(ticket)
+            return carry
+        self._pipe_sem.acquire()
+        try:
+            carry, ticket = self._dispatch(items)
+        except BaseException:
+            self._pipe_sem.release()
+            raise
+        if ticket is None:
+            self._pipe_sem.release()
+            return carry
+        with self._pipe_lock:
+            self._inflight += 1
+            depth = self._inflight
+        self._note_inflight(depth)
+        self._pipe_q.put(ticket)
+        return carry
+
+    def _release_slot(self) -> None:
+        with self._pipe_lock:
+            self._inflight -= 1
+        self._pipe_sem.release()
+
+    def _note_inflight(self, depth: int) -> None:
+        with self._stats_lock:
+            if depth > self._stats["inflight_max"]:
+                self._stats["inflight_max"] = depth
+
+    def _completion_loop(self) -> None:
+        """Completion stage: each ticket in dispatch order, its event
+        waited on, its futures resolved. A failed ticket fails only its
+        own futures; the loop lives as long as the engine."""
+        while True:
+            t = self._pipe_q.get()
+            if t is _STOP:
+                return
+            try:
+                self._complete(t)
+            except Exception as e:
+                self._ticket_failed(t, e)
+            finally:
+                self._release_slot()
+                self._sweep_bulks()
+
+    def _ticket_failed(self, ticket, exc) -> None:
+        """A ticket's results could not be read back: fail its
+        unresolved futures. Its waves ran: the table holds their
+        updates (it is updated in place, so there is nothing to rebuild,
+        unlike the JAX engine's donated buffers), and later tickets go
+        on from that table."""
+        err = str(exc)
+        for _req, fut in ticket.items:
+            if not fut.done():
+                fut.set_result(RateLimitResp(error=err))
+
+    def _pipeline_quiesce(self) -> None:
+        """Wait until every ticket in flight has completed and switch
+        `_process` to inline completion (drain mode). Pump thread only:
+        taking every ring slot is ticket-free only when no other producer
+        can interleave."""
+        self._draining = True
+        if self._pipe_q is None:
+            return
+        for _ in range(self._pipe_depth):
+            self._pipe_sem.acquire()
+        for _ in range(self._pipe_depth):
+            self._pipe_sem.release()
+
+    # -- one flush -----------------------------------------------------------
+
+    def _dispatch(self, items: List[Tuple[RateLimitReq, object]]):
+        """Pipeline stage 1: assemble + encode the flush on the host and
+        launch its waves, with their read-back queued and nothing waited
+        for. Returns (carry, ticket); `_complete` resolves the ticket.
+        The ticket is None when no wave was made (every item resolved by
+        an encode error)."""
         now = self.now_fn()
         cfg = self.cfg
         hi_a, lo_a, grp_a = key_hash128_batch(
@@ -484,13 +723,29 @@ class MeshEngine:
         n_waves = len(asm.waves)
         while n_waves and asm.fill(n_waves - 1) == 0:
             n_waves -= 1
-        waves = [batch_prefix(asm.waves[w], asm.fill(w)) for w in range(n_waves)]
+        if n_waves == 0:
+            return carry, None
+        # every wave at its own width (its occupied lanes, a prefix),
+        # one after another in one host batch
+        fills = [asm.fill(w) for w in range(n_waves)]
+        offsets = np.concatenate([[0], np.cumsum(fills)[:-1]]).tolist()
+        hb = RequestBatch(*(
+            np.concatenate([c[:f] for c, f in zip(cols, fills)])
+            for cols in zip(*asm.waves[:n_waves])
+        ))
+        flush, launches = self._execute_waves(hb, list(zip(offsets, fills)), now)
+        return carry, _FlushTicket(
+            items=items, placements=placements, flush=flush, waves=n_waves,
+            launches=launches,
+        )
 
-        outs, launches = self._execute_waves(waves, now)
-        host = self._read_back(outs)
-
-        served = 0
-        for (req, fut), place in zip(items, placements):
+    def _complete(self, t: _FlushTicket) -> None:
+        """Pipeline stage 2: wait for the ticket's read-back (its event
+        on a card), count the flush, resolve its futures."""
+        host = t.flush.host()
+        served = sum(p is not None for p in t.placements)
+        self._count_flush("flushes", host, t.waves, t.launches, served)
+        for (_req, fut), place in zip(t.items, t.placements):
             if place is None:
                 continue  # resolved (encode error) or carried
             st, rem, rst, lim = host[place[0]][:4]
@@ -501,63 +756,120 @@ class MeshEngine:
                 remaining=int(rem[lane]),
                 reset_time=int(rst[lane]),
             ))
-            served += 1
+
+    def _count_flush(self, kind: str, host, waves: int, launches: int, served: int) -> None:
+        hits, misses, evictions, over = _wave_totals(host)
         with self._stats_lock:
             s = self._stats
-            s["flushes"] += 1
-            s["waves"] += len(waves)
+            s[kind] += 1
+            s["waves"] += waves
             s["kernel_launches"] += launches
             s["requests"] += served
-            for h in host:
-                s["cache_hits"] += h[4]
-                s["cache_misses"] += h[5]
-                s["unexpired_evictions"] += h[6]
-                s["over_limit"] += h[7]
-        return carry
+            s["cache_hits"] += hits
+            s["cache_misses"] += misses
+            s["unexpired_evictions"] += evictions
+            s["over_limit"] += over
 
-    def _execute_waves(self, waves, now: int):
-        """Run decide over the scatter-disjoint waves, in order, under the
-        table lock. Returns (per-wave DecideOutputs, kernel launches).
-        If a wave fails after earlier waves committed, raises
-        TableCommittedError so no caller retries the batch."""
-        outs = []
+    def _execute_waves(self, hb: RequestBatch, spans, now: int):
+        """Run decide over a flush's scatter-disjoint waves, in order,
+        under the table lock, on the engine's stream: `hb` holds every
+        wave's lanes on the host, wave w the span `spans[w] = (offset,
+        width)` of each column. The batch goes to the device in one copy;
+        each wave writes its span of the flush's outputs
+        (`cuda_decide.WaveFlush`), whose read-back is queued behind the
+        last wave. Returns (flush, kernel launches). If a wave fails after
+        earlier waves committed, raises TableCommittedError so no caller
+        retries the batch."""
+        pager = self._pager
         launches = 0
-        with self._lock, self.topo.dispatch_guard():
+        with self._lock, self.topo.dispatch_guard(), self._on_stream():
+            flush = cuda_decide.WaveFlush(batch_to_device(hb, self.device), spans, self._memo)
+            done = 0
             try:
-                for wb in waves:
-                    if self._pager is not None:
+                for w, (off, width) in enumerate(spans):
+                    if pager is not None:
                         # Promote every page this wave touches BEFORE its
                         # decide, from the host batch (a wave over the
                         # budget raises PageBudgetError).
-                        self.table = self._pager.ensure_resident(
-                            self.table, self._pager.touched_pages(wb.group, wb.active)
+                        sl = slice(off, off + width)
+                        self.table = pager.ensure_resident(
+                            self.table, pager.touched_pages(hb.group[sl], hb.active[sl])
                         )
-                    db = batch_to_device(wb, self.device)
                     before = cuda_decide.thread_launches()
-                    self.table, out = self.K.decide(self.table, db, now, self.cfg.ways)
+                    self.table = self.K.run_wave(self.table, flush, w, now, self.cfg.ways)
                     launches += cuda_decide.thread_launches() - before
-                    outs.append(out)
+                    done += 1
             except Exception as e:
-                if outs:
+                if done:
                     raise TableCommittedError(str(e)) from e
                 raise
-        return outs, launches
+            flush.read_back()
+        return flush, launches
 
-    def _read_back(self, outs) -> list:
-        """The flush's decisions to the host: every wave's copies queued
-        without blocking, then ONE synchronisation."""
-        fields = [
-            (o.status, o.remaining, o.reset_time, o.limit,
-             o.hits, o.misses, o.unexpired_evictions, o.over_limit)
-            for o in outs
-        ]
-        if self.device.type == "cuda":
-            fields = [tuple(t.to("cpu", non_blocking=True) for t in f) for f in fields]
-            torch.cuda.current_stream(self.device).synchronize()
-        return [
-            tuple(t.numpy() for t in f[:4]) + tuple(int(t) for t in f[4:])
-            for f in fields
-        ]
+    # -- the columnar path (the serving edge, service/fastpath.py) -------------
+
+    def check_columns(self, cols, now: Optional[int] = None, select=None, hashes=None):
+        """Decide a batch given as wire columns (`wire.RequestColumns`)
+        with no per-item Python objects: one native hash call, waves and
+        lanes assigned with array operations (`_assemble_column_waves`),
+        the (W, B) stack sent to the device in one copy, every wave a
+        contiguous row of it. Returns (status, limit, remaining,
+        reset_time) numpy arrays in request order, or None when the batch
+        needs the object path (empty, more than `max_waves` waves, or
+        more than `batch_size` lanes in one).
+
+        The caller guarantees: no DURATION_IS_GREGORIAN items, no GLOBAL
+        bit unless the engine routes GLOBAL internally, no per-item
+        metadata, and validation already done (service/fastpath.py).
+
+        `select` serves a SUBSET of the batch (the Gregorian lane split of
+        the edge), with `hashes` = (hi, lo, grp) over the FULL batch.
+        Results align with `select`'s order.
+
+        The never-seen keys' strings join the key dictionary (the object
+        path records every key's), so snapshots carry the same
+        `key_strings` whichever path served."""
+        cfg = self.cfg
+        if cols.n == 0:
+            return None
+        if now is None:
+            now = self.now_fn()
+        if hashes is None:
+            hi, lo, grp = key_hash128_batch_raw(
+                cols.key_data.tobytes(), cols.key_offsets, cfg.num_groups
+            )
+        else:
+            hi, lo, grp = hashes
+        orig_cols, sel_map = cols, None
+        if select is not None:
+            if len(select) == 0:
+                return None
+            hi, lo, grp = hi[select], lo[select], grp[select]
+            cols = _select_columns(cols, select)
+            sel_map = select
+        asm = _assemble_column_waves(cols, hi, lo, grp, now, cfg.batch_size, cfg.max_waves)
+        if asm is None:
+            return None
+        wb, _wave, _lane, ix, W, B = asm
+
+        keys_l = list(zip(hi.tolist(), lo.tolist()))
+        with self._keys_lock:
+            miss = [(j, k) for j, k in enumerate(keys_l) if k not in self._key_strings]
+        if miss:
+            decoded = [
+                (k, orig_cols.key_string(int(sel_map[j]) if sel_map is not None else j))
+                for j, k in miss
+            ]
+            with self._keys_lock:
+                self._key_strings.update(decoded)
+            self._maybe_prune_key_strings()
+
+        flat = RequestBatch(*(c.reshape(-1) for c in wb))
+        flush, launches = self._execute_waves(flat, [(w * B, B) for w in range(W)], now)
+        host = flush.host()
+        self._count_flush("columnar_flushes", host, W, launches, cols.n)
+        status, limit, remaining, reset_time = _stack_wave_outputs(host)
+        return status[ix], limit[ix], remaining[ix], reset_time[ix]
 
     def _maybe_prune_key_strings(self) -> None:
         """Bound host memory: when the hash->string dictionary exceeds
@@ -565,7 +877,8 @@ class MeshEngine:
         n = self.cfg.num_groups * self.cfg.ways
         if len(self._key_strings) <= max(2 * n, 4096):
             return
-        with self._lock:
+        # on the engine's stream: the read sees every wave queued before it
+        with self._lock, self._on_stream():
             wide = self.K.to_wide(self.table)
             used = wide.used.cpu().numpy()
             hi = wide.key_hi.cpu().numpy()[used]
@@ -589,7 +902,7 @@ class MeshEngine:
         Paged table: the LOGICAL wide image (resident frames and host-tier
         pages placed at their logical offsets), identical to a flat
         table's snapshot of the same keys."""
-        with self._lock:
+        with self._lock, self._on_stream():
             wide = self.K.to_wide(self.table)
             host = {
                 f: getattr(wide, f).to("cpu", copy=True).numpy()
@@ -635,9 +948,8 @@ class MeshEngine:
         if self._pager is not None:
             self._restore_paged(wide)
         else:
-            table = self.K.from_wide(wide, self.device)
-            with self._lock:
-                self.table = table
+            with self._lock, self._on_stream():
+                self.table = self.K.from_wide(wide, self.device)
         with self._keys_lock:
             self._key_strings = dict(snap.get("key_strings", {}))
 
@@ -645,7 +957,7 @@ class MeshEngine:
         PK = self.K
         ps = PK.page_slots
         n = wide.num_slots
-        with self._lock:
+        with self._lock, self._on_stream():
             self.table = PK.create()
             pager = self._pager
             pager.reset()
@@ -668,3 +980,99 @@ class DeviceEngine(MeshEngine):
     """MeshEngine at mesh shape (1,): the single-device engine that
     V1Service and the tests construct, its table on `EngineConfig.device`
     (the default topology). Every behaviour lives in the core."""
+
+
+def _assemble_column_waves(cols, hi, lo, grp, now: int, batch_size: int, max_waves: int):
+    """Vectorized wave assembly of the columnar path: wave = occurrence
+    rank within the group (a stable sort keeps arrival order, so a key's
+    requests keep their order); lane = arrival rank within the wave.
+    Returns (wb, wave, lane, ix, W, B) with `wb` a (W, B) host
+    RequestBatch narrowed to the occupancy (B = the widest wave's lanes),
+    or None when the batch exceeds the wave or lane bounds (the caller
+    takes the object path). The clamps are encode_rows' (encode_one's);
+    created_at == 0 counts as absent, as on the object path."""
+    n = cols.n
+    order = np.argsort(grp, kind="stable")
+    sg = grp[order]
+    wave_sorted = np.arange(n) - np.searchsorted(sg, sg, side="left")
+    wave = np.empty(n, np.int64)
+    wave[order] = wave_sorted
+    num_waves = int(wave.max()) + 1
+    if num_waves > max_waves:
+        return None
+    order2 = np.argsort(wave, kind="stable")
+    sw = wave[order2]
+    lane_sorted = np.arange(n) - np.searchsorted(sw, sw, side="left")
+    max_lane = int(lane_sorted.max())
+    if max_lane >= batch_size:
+        return None
+    lane = np.empty(n, np.int64)
+    lane[order2] = lane_sorted
+
+    hits = np.clip(cols.hits, -MAX_COUNT, MAX_COUNT)
+    limit = np.clip(cols.limit, -MAX_COUNT, MAX_COUNT)
+    duration = np.clip(cols.duration, 0, MAX_DURATION_MS)
+    burst = np.clip(cols.burst, 0, MAX_COUNT)
+    is_leaky = cols.algo.astype(np.int64) == 1
+    burst = np.where(is_leaky & (burst == 0), limit, burst)
+    created = np.where(
+        cols.has_created.astype(bool) & (cols.created_at != 0), cols.created_at, np.int64(now),
+    )
+
+    W, B = num_waves, max_lane + 1
+    wb = RequestBatch(*(np.zeros((W, B), dtype=dt) for dt in BATCH_DTYPES.values()))
+    ix = (wave, lane)
+    wb.key_hi[ix] = hi
+    wb.key_lo[ix] = lo
+    wb.group[ix] = grp
+    wb.algo[ix] = cols.algo.astype(np.int8)
+    wb.behavior[ix] = cols.behavior.astype(np.int32)
+    wb.hits[ix] = hits
+    wb.limit[ix] = limit
+    wb.duration[ix] = duration
+    wb.rate_num[ix] = duration
+    wb.eff_duration[ix] = duration
+    wb.burst[ix] = burst
+    wb.created_at[ix] = created
+    wb.active[ix] = True
+    return wb, wave, lane, ix, W, B
+
+
+def _stack_wave_outputs(host):
+    """(status, limit, remaining, reset_time) stacked (W, B) from the
+    per-wave host outputs (`WaveFlush.host()`)."""
+    return (
+        np.stack([h[0] for h in host]),
+        np.stack([h[3] for h in host]),
+        np.stack([h[1] for h in host]),
+        np.stack([h[2] for h in host]),
+    )
+
+
+def _wave_totals(host):
+    """(hits, misses, unexpired_evictions, over_limit) summed over the
+    waves of a flush."""
+    return tuple(sum(h[k] for h in host) for k in (4, 5, 6, 7))
+
+
+def _select_columns(cols, select: np.ndarray):
+    """Subset view of RequestColumns for check_columns(select=...): the
+    field arrays are fancy-indexed; the key bytes are NOT re-sliced (the
+    hashes come from the full batch, and key strings are read from the
+    original columns), so key_offsets is None: any use of the subset's
+    keys fails loudly instead of reading misaligned offsets."""
+    return dataclasses.replace(
+        cols,
+        n=int(len(select)),
+        hits=cols.hits[select],
+        limit=cols.limit[select],
+        duration=cols.duration[select],
+        algo=cols.algo[select],
+        behavior=cols.behavior[select],
+        burst=cols.burst[select],
+        created_at=cols.created_at[select],
+        has_created=cols.has_created[select],
+        slow=cols.slow[select],
+        name_lens=cols.name_lens[select],
+        key_offsets=None,
+    )

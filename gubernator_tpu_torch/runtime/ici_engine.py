@@ -15,14 +15,20 @@ NotImplementedError at submission (answering it from the sharded table
 would be a different result), and no sync thread starts.
 
 The public surface matches DeviceEngine (check_async / check_bulk /
-check_batch / close / snapshot / restore / stats), so V1Service takes
-either.
+check_batch / check_columns / close / snapshot / restore / stats), so
+V1Service and the serving edge take either: the pipeline and the
+columnar path are the core's, over the one sharded launch per wave. A
+GLOBAL column raises in `check_columns` as a GLOBAL request does on the
+object path, so the edge (service/fastpath.py) leaves such a batch to
+the object path, which refuses it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional, Sequence
+
+import numpy as np
 
 from gubernator_tpu_torch.api.types import Behavior, RateLimitReq
 from gubernator_tpu_torch.runtime.engine import MeshEngine
@@ -33,7 +39,7 @@ from gubernator_tpu_torch.utils import clock as _clock
 @dataclasses.dataclass
 class IciEngineConfig:
     """The sharded tier's knobs (defaults mirror the JAX engine's; the
-    GLOBAL replica tier's and the pipeline's come with their slices)."""
+    GLOBAL replica tier's come with its slice)."""
 
     # One device per shard, repeats allowed (["cpu"] * 8, ["cuda:0"] * 8);
     # None: one shard per visible card.
@@ -53,6 +59,7 @@ class IciEngineConfig:
     page_budget: int = 0
     # Only 0 (demand demotes) is served, as in EngineConfig.
     page_demote_interval_s: float = 0.0
+    pipeline_depth: int = 2  # flushes in flight, as in EngineConfig
 
 
 class IciEngine(MeshEngine):
@@ -78,12 +85,14 @@ class IciEngine(MeshEngine):
     def mesh(self):
         return self.topo.mesh
 
+    _GLOBAL_REFUSED = (
+        "GLOBAL requests on the mesh tier are answered by the GLOBAL "
+        "replica tier (parallel/ici.py), which is not ported yet"
+    )
+
     def _refuse_global(self, reqs: Sequence[RateLimitReq]) -> None:
         if self._rtier is None and any(r.behavior & int(Behavior.GLOBAL) for r in reqs):
-            raise NotImplementedError(
-                "GLOBAL requests on the mesh tier are answered by the GLOBAL "
-                "replica tier (parallel/ici.py), which is not ported yet"
-            )
+            raise NotImplementedError(self._GLOBAL_REFUSED)
 
     def check_async(self, req: RateLimitReq):
         self._refuse_global([req])
@@ -92,6 +101,12 @@ class IciEngine(MeshEngine):
     def check_bulk(self, reqs: Sequence[RateLimitReq]):
         self._refuse_global(reqs)
         return super().check_bulk(reqs)
+
+    def check_columns(self, cols, now=None, select=None, hashes=None):
+        behavior = cols.behavior if select is None else cols.behavior[select]
+        if self._rtier is None and np.any(behavior & int(Behavior.GLOBAL)):
+            raise NotImplementedError(self._GLOBAL_REFUSED)
+        return super().check_columns(cols, now=now, select=select, hashes=hashes)
 
     def stats(self) -> dict:
         """The core's counters plus the shard count."""

@@ -8,6 +8,12 @@ or an `IciEngine` (the owner-sharded mesh, runtime/ici_engine.py), which
 refuses GLOBAL requests until the replica tier is ported. Peers, GLOBAL
 replication, leases and the decision recorder come in later slices; the
 network listeners too, so callers use this class in process.
+
+`serve_get_rate_limits_bytes` is the grpc-free serving core of
+V1/GetRateLimits over wire bytes (the JAX package's
+`service/grpc_service.py`): the columnar edge first
+(service/fastpath.py), else the object path over requests built from
+the native parse, answered in bytes equal to protobuf's.
 """
 
 from __future__ import annotations
@@ -15,7 +21,9 @@ from __future__ import annotations
 import asyncio
 from typing import List, Optional, Sequence
 
+from gubernator_tpu_torch import wire
 from gubernator_tpu_torch.api.types import (
+    Behavior,
     HealthCheckResp,
     MAX_BATCH_SIZE,
     RateLimitReq,
@@ -23,6 +31,7 @@ from gubernator_tpu_torch.api.types import (
     validate_request,
 )
 from gubernator_tpu_torch.runtime.engine import MeshEngine
+from gubernator_tpu_torch.service import fastpath
 from gubernator_tpu_torch.utils import clock as _clock
 
 
@@ -36,9 +45,15 @@ class ApiError(Exception):
 
 
 class V1Service:
-    def __init__(self, engine: MeshEngine, now_fn=_clock.now_ms):
+    def __init__(self, engine: MeshEngine, now_fn=_clock.now_ms, *,
+                 force_global: bool = False, fast_edge: bool = True):
         self.engine = engine
+        # GUBER_FORCE_GLOBAL: every item is GLOBAL
+        self.force_global = force_global
         self.now_fn = now_fn
+        # The columnar edge serves wire-byte calls (the JAX daemon's
+        # default for a node without a Loader, daemon.py:135).
+        self.fast_edge = fast_edge
 
     # ---- V1.GetRateLimits (reference gubernator.go:183-309) ----------------
 
@@ -49,6 +64,7 @@ class V1Service:
                 grpc_code="OUT_OF_RANGE",
             )
         now = self.now_fn()
+        glob = int(Behavior.GLOBAL)
         responses: List[Optional[RateLimitResp]] = [None] * len(reqs)
         local_items: List[tuple] = []  # (idx, req) -> one bulk engine submit
         for i, req in enumerate(reqs):
@@ -58,6 +74,8 @@ class V1Service:
                 continue
             if req.created_at is None or req.created_at == 0:
                 req.created_at = now
+            if self.force_global:
+                req.behavior |= glob
             local_items.append((i, req))
 
         if local_items:
@@ -79,3 +97,43 @@ class V1Service:
     async def health_check(self) -> HealthCheckResp:
         """A standalone node has no peers and no drain state yet."""
         return HealthCheckResp(status="healthy", peer_count=0)
+
+
+async def serve_get_rate_limits_bytes(svc: V1Service, data: bytes) -> bytes:
+    """V1/GetRateLimits over wire bytes: a GetRateLimitsReq in, a
+    GetRateLimitsResp out. The columnar edge serves first, in an executor
+    (the native parse and the kernels release the interpreter lock);
+    a mixed batch's Gregorian items go through the object path and are
+    spliced back in request order. Otherwise the object path serves
+    requests built from the native parse. Raises ApiError for whole-call
+    failures: bytes the parse rejects, and a name or key that is not
+    UTF-8, are INVALID_ARGUMENT ("malformed request"), as protobuf's
+    decode error is for the JAX package."""
+    if fastpath.enabled(svc):
+        res = await asyncio.get_running_loop().run_in_executor(
+            None, fastpath.try_serve, svc, data
+        )
+        if isinstance(res, bytes):
+            return res
+        if res is not None:
+            _, n, local_pos, local_out, other_reqs = res
+            # The columnar hits are committed: a failure of the rest
+            # degrades those items to per-item errors, never the call (a
+            # client retry would charge every columnar key twice).
+            try:
+                other = await svc.get_rate_limits(other_reqs)
+            except Exception as e:
+                other = [RateLimitResp(error=str(e)) for _ in other_reqs]
+            return fastpath.merge_mixed(n, local_pos, local_out, other)
+    cols = wire.parse_requests(data)
+    if cols is None:
+        raise ApiError("malformed request", grpc_code="INVALID_ARGUMENT")
+    reqs = []
+    for i in range(cols.n):
+        if cols.slow[i]:
+            try:
+                cols.name_key_parts(i, errors="strict")
+            except UnicodeDecodeError:
+                raise ApiError("malformed request", grpc_code="INVALID_ARGUMENT") from None
+        reqs.append(wire.req_from_columns(cols, i))
+    return wire.encode_responses(await svc.get_rate_limits(reqs))

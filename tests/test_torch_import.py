@@ -77,10 +77,28 @@ def test_source_imports_no_jax_or_reference_package(path):
     "gubernator_tpu_torch.runtime.topology",
     "gubernator_tpu_torch.runtime.ici_engine",
     "gubernator_tpu_torch.ablate",
+    "gubernator_tpu_torch.wire",
+    "gubernator_tpu_torch.service.fastpath",
+    "gubernator_tpu_torch.service.server",
+    "gubernator_tpu_torch.runtime.engine",
 ])
 def test_slice_modules_are_checked(module):
     """The narrow layout, the paged table, the pager, the bench, the
     scan and sharded wrappers, the mesh, the topologies, the mesh
-    engine and the kernel ablation tool are among the modules imported
-    above with jax and gubernator_tpu blocked."""
+    engine, the kernel ablation tool, the wire path, the columnar edge,
+    the bytes serving core and the pipelined engine are among the
+    modules imported above with jax and gubernator_tpu blocked."""
     assert module in _port_modules()
+
+
+def test_wire_library_builds_from_the_port_source():
+    """The wire path loads the port's own build of csrc/wirepath.cc
+    (into gubernator_tpu_torch/_build/), never the JAX package's
+    native/ library."""
+    from gubernator_tpu_torch import wire
+    from gubernator_tpu_torch.ops import _build
+
+    lib = wire.load()
+    assert lib._name == str(_build.lib_path("wirepath"))
+    assert _build.lib_path("wirepath").parent == PKG / "_build"
+    assert "native" not in Path(lib._name).parts
