@@ -132,6 +132,37 @@ Phases, for each size:
    answers equal, and on a flat table two flushes in flight (a paged
    table's demote waits on the stream inside dispatch: reported only).
    Phases 5 and 8 run at the engines' default depth, 2.
+11. census: after each serving run of phases 5 and 8, on that live
+   engine (its background demoter stopped first, so the table holds
+   still), `table_census(max_age_s=0)` and `admission_snapshot(
+   max_age_s=0)` against the port's numpy oracles over the same table
+   copied to the host, field for field (tolerance: none); then each
+   scan's device time (CUDA events, L2 flushed, the stream held busy
+   while the host enqueues, median of 10), the host time of a whole
+   snapshot with its read-back, the device memory one scan adds at its
+   peak, and the byte bound (the scanned table read once at 3.35 TB/s).
+12. wavescan_oracles, after phase 1 for each wave configuration (rows
+   1-3b): 4 waves of the wave kernel, each wave's five WaveScan sums
+   against the admission and census oracles over the rows it wrote
+   (`gather_rows(table, out.slot)`), as the JAX package's kernel fuzz
+   holds its kernel. The sharded kernel is left out (its psum'd slot is
+   not a global slot index).
+13. page_moves, at 10M for each layout: the insides of 16 demotes and
+   promotes of a 32,768-slot page, medians on the host clock and CUDA
+   events: the one-copy path the pager runs (`read_page`, `write_page`)
+   beside the per-column path it replaced (written in the phase), the
+   frame's zeroing and the page-map write; the host rows of both demote
+   paths bit-equal.
+14. demoter, at 10M (fused) on a DeviceEngine and an IciEngine of 8
+   shards: the census-gated background demoter (every 0.05 s, 8 free
+   frames, per shard on the mesh) must move no page while every slot is
+   hot, must reach its target once the clock makes the slots of shorter
+   windows census-cold, taking exactly the census-coldest pages its rule
+   picks, and must lose no key: every answer and the final snapshot
+   equal a flat engine's on the same calls and clock.
+Phase 9's run at the default max_waves is made at the engines' default
+demoter setting (every 2 s on a paged table, as the JAX package runs
+it) and, for each paged engine, once more with the demoter off.
 
 Then the bench (`gubernator_tpu_torch/bench.py`, the port of the repo's
 `bench.py` device modes), each run with the launch counts set to 0 just
@@ -177,6 +208,9 @@ from gubernator_tpu_torch import bench  # noqa: E402
 from gubernator_tpu_torch.api.keys import key_hash128_batch  # noqa: E402
 from gubernator_tpu_torch.api.types import RateLimitReq, RateLimitResp  # noqa: E402
 from gubernator_tpu_torch.ops import _build, cuda_decide, fused, narrow  # noqa: E402
+from gubernator_tpu_torch.ops.admission import admission_oracle  # noqa: E402
+from gubernator_tpu_torch.ops.census import census_oracle  # noqa: E402
+from gubernator_tpu_torch.ops.kernels import BYTES_PER_SLOT, get_kernels  # noqa: E402
 from gubernator_tpu_torch.ops.layout import (  # noqa: E402
     BATCH_DTYPES,
     SLOT_DTYPES,
@@ -244,7 +278,13 @@ DEVICE = torch.device("cuda", 0)
 _lines = []
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print a phase line (with `t_s`, the seconds since the script
+    started) and keep it for the JSON file under OUT_DIR."""
+    obj = dict(obj, t_s=round(time.perf_counter() - _T0, 3))
     line = json.dumps(obj, sort_keys=True)
     _lines.append(line)
     print(line, flush=True)
@@ -1405,7 +1445,7 @@ def _serve(svc, calls, clk, spans=None):
     return out, t, per_call
 
 
-def phase_main_path(rng, image: SlotTable, size: Size):
+def phase_main_path(rng, image: SlotTable, size: Size, card: str):
     """One CPU reference engine (flat, fused) and, on the same calls and
     frozen clock, a CUDA engine per configuration of the size. Returns
     the lines, and (snapshot of the image, calls, CPU responses, CPU
@@ -1443,6 +1483,7 @@ def phase_main_path(rng, image: SlotTable, size: Size):
                 launches = dict(cuda_decide.CONFIG_LAUNCHES)
                 gst = geng.stats()
                 gsnap = geng.snapshot()
+                phase_census(geng, size, name, False, card)
             finally:
                 geng.close()
             mismatches = sum(a != b for gc, wc in zip(got, want) for a, b in zip(gc, wc))
@@ -1494,7 +1535,7 @@ def phase_main_path(rng, image: SlotTable, size: Size):
     return results, (snap, calls, want, csnap)
 
 
-def phase_mesh_main_path(size: Size, reference):
+def phase_mesh_main_path(size: Size, reference, card: str):
     """`V1Service` over an `IciEngine` of MESH_SHARDS shards on the card,
     per layout of the size (flat at 1M, paged at 10M: the page budget
     split into one frame pool per shard), on the calls and frozen clock
@@ -1521,6 +1562,7 @@ def phase_mesh_main_path(size: Size, reference):
                 st = eng.stats()
                 msnap = eng.snapshot()
                 shard_pages = eng._pager.pages_snapshot()["shards"] if paged else None
+                phase_census(eng, size, name, True, card)
             finally:
                 eng.close()
             mismatches = sum(a != b for gc, wc in zip(got, want) for a, b in zip(gc, wc))
@@ -1754,8 +1796,13 @@ def phase_edge_main_path(size: Size, reference):
             raise AssertionError(f"{size.name}: a call fits the default max_waves; the "
                                  "default-setting edge run expects none to")
         want_obj = [wire.encode_responses([RateLimitResp(*t) for t in call]) for call in _want]
-        for name, layout, paged, mesh in _edge_configs(size):
-            eng = _edge_engine(size, layout, paged, mesh)
+        # paged: at the JAX default (the background demoter every 2 s),
+        # then with the demoter off, in the same run
+        runs = [(c, {}) for c in _edge_configs(size)]
+        runs += [(c, {"page_demote_interval_s": 0.0}) for c in _edge_configs(size) if c[2]]
+        for (name, layout, paged, mesh), extra in runs:
+            eng = _edge_engine(size, layout, paged, mesh, **extra)
+            interval = eng.cfg.page_demote_interval_s if paged else None
             try:
                 eng.restore(snap)
                 st0 = eng.stats()
@@ -1771,6 +1818,7 @@ def phase_edge_main_path(size: Size, reference):
             res = {"phase": "edge_main_path", "size": size.name, "kernel": name,
                    "mesh": mesh, "paged": paged, "calls": len(calls), "items": decisions,
                    "max_waves": max_waves, "default_max_waves": True,
+                   "page_demote_interval_s": interval,
                    "max_key_repeats_per_call": repeats,
                    "response_bytes_mismatches": sum(a != b for a, b in zip(got, want_obj)),
                    "snapshot_columns_differing": _snap_diff(esnap, _csnap),
@@ -1779,6 +1827,8 @@ def phase_edge_main_path(size: Size, reference):
                    "object_path_flushes": st["flushes"] - st0["flushes"],
                    "waves": st["waves"] - st0["waves"], "launches": launches[name],
                    "decisions_per_s": decisions / secs, "seconds": secs}
+            if paged:
+                res.update({k: st[k] - st0[k] for k in ("promotes", "demotes", "binds")})
             del esnap
             emit(res)
             if res["response_bytes_mismatches"] or res["snapshot_columns_differing"]:
@@ -1787,7 +1837,7 @@ def phase_edge_main_path(size: Size, reference):
             if res["columnar_flushes"] or res["launches"] != res["waves"]:
                 raise AssertionError(f"{name}: the default-setting edge ran columnar, or its "
                                      "launches do not match the waves")
-            results[(name, size.name, "default")] = res
+            results[(name, size.name, "default", interval)] = res
             free_device()
     return results
 
@@ -1904,6 +1954,442 @@ def phase_pipeline(size: Size, reference):
     return results
 
 
+# ---------------------------------------------------------------------------
+# the observatories (census and admission scans), the page moves and the
+# census-gated background demoter
+
+CENSUS_REPS = 10
+# Cycles the stream spins before a timed scan (about 10 ms), longer than
+# the host takes to enqueue the scan's torch ops, so that the window
+# holds device work only
+SCAN_HOLD_CYCLES = 20_000_000
+_CENSUS_FIELDS = (("live", "live"), ("full_groups", "full_groups"), ("waste", "waste"),
+                  ("age_ms_hist", "age_hist"), ("age_ms_sum", "age_sum"),
+                  ("idle_ms_hist", "idle_hist"), ("idle_ms_sum", "idle_sum"),
+                  ("heatmap", "heatmap"), ("cold_heatmap", "cold_heatmap"),
+                  ("fill_hist", "fill_hist"), ("max_full_run", "max_full_run"))
+_ADMISSION_FIELDS = (("keys", "keys"), ("admitted_hits", "admitted_sum"),
+                     ("limit_hits", "limit_sum"), ("excess_hits", "excess_sum"),
+                     ("excess_keys", "excess_keys"), ("max_excess", "max_excess"),
+                     ("over_limit_keys", "over_limit_keys"), ("excess_hist", "excess_hist"))
+
+
+def _ops_per_call(fn, reps=3) -> float:
+    """Device operations (kernels, copies, memsets) per call of `fn`, from
+    torch.profiler over `reps` calls between `_device_ops`' marker fills
+    (float fills, which `fn`'s own int fills are not)."""
+    ops = _device_ops(fn, reps)
+    return sum(1 for n in ops if "FillFunctor<float>" not in n) / reps
+
+
+def _stop_demoter(eng) -> None:
+    """Stop an engine's background demoter (close() does it too), so that
+    its table holds still between a scan and the scan's host copy."""
+    eng._demote_stop.set()
+    if eng._demote_thread is not None:
+        eng._demote_thread.join()
+
+
+def _scanned_rows(eng, fields=SlotTable._fields) -> SlotTable:
+    """The engine's scanned table (a paged table's physical frames) as
+    wide host rows: `fields` copied, the other columns zero."""
+    with eng._lock, eng._on_stream():
+        wide = eng.K.to_wide(eng.table)
+        n = wide.num_slots
+        return SlotTable(*(getattr(wide, f).cpu().numpy() if f in fields
+                           else np.zeros(n, SLOT_DTYPES[f]) for f in SlotTable._fields))
+
+
+def phase_census(eng, size: Size, name: str, mesh: bool, card: str):
+    """`table_census(max_age_s=0)` and `admission_snapshot(max_age_s=0)`
+    of a live engine after its serving run, against the port's numpy
+    oracles over the same table copied to the host, field for field (the
+    table's tier; a paged table's host tier is censused by the engine with
+    those oracles already); then the device time of one census and one
+    admission scan (CUDA events, L2 flushed, stream held busy while the
+    host enqueues, median of CENSUS_REPS), the host time of a whole
+    snapshot with its read-back, the device memory one scan adds at its
+    peak, and the byte bound (the scanned table read once)."""
+    _stop_demoter(eng)
+    sync()
+    cfg = eng.cfg
+    now = eng.now_fn()
+    census = eng.table_census(max_age_s=0)
+    admission = eng.admission_snapshot(max_age_s=0)
+    rows = _scanned_rows(eng)
+    want_c = census_oracle(rows, now, ways=cfg.ways, heatmap_width=cfg.census_heatmap_width,
+                           thresholds=tuple(cfg.census_thresholds))
+    want_a = admission_oracle(rows, now)
+    slots = rows.num_slots
+    del rows
+    tier = census["tiers"][eng.topo.primary_tier]
+    bad = [k for k, o in _CENSUS_FIELDS if np.asarray(tier[k]).tolist() != np.asarray(want_c[o]).tolist()]
+    if [c["slots"] for c in tier["cold"]] != want_c["cold"].tolist():
+        bad.append("cold")
+    atier = admission["tiers"][eng.topo.primary_tier]
+    bad += [k for k, o in _ADMISSION_FIELDS
+            if np.asarray(atier[k]).tolist() != np.asarray(want_a[o]).tolist()]
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)  # > the H100's 50 MB L2
+    view = eng._census_view(eng.table)
+    times = {}
+    for scan, fn in (("census", eng._census), ("admission", eng._admission)):
+        fn(view, now)
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(view, now)
+        sync()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = _median_ms(lambda: fn(view, now), CENSUS_REPS, flush, hold_cycles=SCAN_HOLD_CYCLES)
+        t0 = time.perf_counter()
+        (eng.table_census if scan == "census" else eng.admission_snapshot)(max_age_s=0)
+        times[scan] = {"device_ms_median": ms, "snapshot_host_ms": (time.perf_counter() - t0) * 1e3,
+                       "peak_added_gb": peak / 1e9,
+                       "device_ops_per_scan": _ops_per_call(lambda: fn(view, now))}
+    del flush
+    table_bytes = slots * BYTES_PER_SLOT[cfg.layout]
+    res = {"phase": "census", "size": size.name, "kernel": name, "mesh": mesh,
+           "paged": eng._pager is not None, "slots_scanned": slots, "live": census["live"],
+           "tiers": {k: v["live"] for k, v in census["tiers"].items()},
+           "cold_slots": [c["slots"] for c in census["cold"]],
+           "admission_keys": admission["keys"], "fields_differing": bad,
+           "table_bytes": table_bytes, "bound_ms": table_bytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "census": times["census"], "admission": times["admission"],
+           "card": card}
+    emit(res)
+    if bad:
+        raise AssertionError(f"{name}: the census or admission snapshot disagrees with the oracles")
+    return res
+
+
+def phase_wavescan_oracles(rng, image, size: Size, layout: str, page_map, kt):
+    """ROADMAP queue 1 item 3's check: for kernel rows 1-3b, WAVESCAN_WAVES
+    waves of the wave kernel on the card, each wave's five WaveScan sums
+    against `admission_oracle(rows, now)` and `census_oracle(rows, now,
+    ways=1)` over the rows it wrote (`gather_rows(table, out.slot)`), as
+    the JAX package's tests/test_kernel_fuzz.py holds its kernel."""
+    name = cuda_decide.config_name(layout, page_map is not None)
+    data = kt.data if isinstance(kt, PagedTable) else kt
+    gather = get_kernels(layout).gather_rows
+    now, bad, live = NOW, [], 0
+    for w in range(WAVESCAN_WAVES):
+        now += int(rng.choice([0, 700, 5000]))
+        hb = smoke_wave(rng, image, now, size.num_groups)
+        out, scan = run_kernel(kt, batch_to_device(hb, DEVICE), now, layout, size.page_groups)
+        rows = SlotTable(*(c.cpu().numpy() for c in gather(data, out.slot)))
+        adm, cen = admission_oracle(rows, now), census_oracle(rows, now, ways=1)
+        got = {f: int(getattr(scan, f)) for f in scan._fields}
+        want = {"adm_keys": adm["keys"], "adm_admitted": adm["admitted_sum"],
+                "adm_limit": adm["limit_sum"], "census_live": cen["live"],
+                "census_waste": cen["waste"]}
+        live += got["census_live"]
+        bad += [(w, f) for f in want if got[f] != want[f]]
+    del data
+    emit({"phase": "wavescan_oracles", "size": size.name, "kernel": name,
+          "waves": WAVESCAN_WAVES, "lanes": B, "census_live_total": live,
+          "sums_differing": bad,
+          "sharded_kernel": "left out: the sharded wave's psum'd slot is not a global slot "
+                            "index (ROADMAP.md section 3), so the rows it wrote cannot be "
+                            "gathered by slot"})
+    if bad or not live:
+        raise AssertionError(f"{name}: WaveScan sums disagree with the oracles")
+
+
+WAVESCAN_WAVES = 4
+PAGE_MOVES = 16
+
+
+def _ev_ms(fn):
+    """(result, device ms between events around `fn`, host ms), the
+    stream idle before."""
+    sync()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    s.record()
+    out = fn()
+    e.record()
+    e.synchronize()
+    return out, s.elapsed_time(e), (time.perf_counter() - t0) * 1e3
+
+
+def phase_page_moves(rng, image, size: Size, layout: str, card: str):
+    """The insides of a demote and a promote at 10M (a 4,096-group page
+    of 32,768 slots), PAGE_MOVES pages each, medians: the one-copy path
+    the pager runs (`read_page`: the frame's packed rows transposed on
+    the card, one copy to a pinned buffer, unpacked on the host;
+    `write_page`: packed column by column into a pinned buffer, one copy,
+    transposed into the frame on the card), whole and part by part,
+    beside, in the same run, the
+    per-column path it replaced (written here: a gather into wide
+    columns on the card and one blocking copy per column; a promote's
+    copy from pageable memory); the frame's zeroing and the page-map
+    write of an unbind. The host rows of both demote paths must be
+    bit-equal (and equal to the image's page)."""
+    from gubernator_tpu_torch.ops.paged import make_paged_kernels
+
+    PK = make_paged_kernels(layout, size.num_groups, WAYS, size.page_groups, size.page_budget,
+                            DEVICE)
+    pt = PK.create()
+    ps, mod = PK.page_slots, LAYOUT[layout]
+    pages = rng.choice(PK.num_logical_pages, PAGE_MOVES, replace=False)
+    frames = rng.choice(size.page_budget, PAGE_MOVES, replace=False)
+    host_pages = {int(lp): {f: np.ascontiguousarray(getattr(image, f)[lp * ps:(lp + 1) * ps])
+                            for f in SlotTable._fields} for lp in pages}
+
+    def old_demote_rows(pp):
+        """runtime/pager.py's demote before this change: the rows
+        gathered into wide columns on the card, then a blocking copy per
+        column."""
+        rows, gather_ms, _ = _ev_ms(lambda: PK.extract_page(pt, pp))
+        t0 = time.perf_counter()
+        host = {f: getattr(rows, f).cpu().numpy() for f in SlotTable._fields}
+        return host, gather_ms, (time.perf_counter() - t0) * 1e3
+
+    def old_promote(lp, pp, rows):
+        t0 = time.perf_counter()
+        packed = mod.pack_table(SlotTable(**rows), None).data
+        pack_ms = (time.perf_counter() - t0) * 1e3
+        frame = pt.data.data[pp * ps:(pp + 1) * ps]
+        _, copy_ms, copy_host_ms = _ev_ms(lambda: frame.copy_(packed))  # pageable
+        return pack_ms, copy_ms, copy_host_ms
+
+    lines = {k: [] for k in (
+        "old_demote_gather_ms", "old_demote_copies_host_ms", "old_demote_total_host_ms",
+        "new_demote_total_host_ms", "new_demote_copy_ms", "new_demote_copy_host_ms",
+        "new_demote_unpack_host_ms", "unbind_zero_ms", "unbind_map_write_ms",
+        "unbind_map_write_host_ms", "old_promote_pack_host_ms", "old_promote_copy_ms",
+        "old_promote_copy_host_ms", "new_promote_total_host_ms", "new_promote_pack_host_ms",
+        "new_promote_copy_ms", "new_promote_transpose_ms")}
+    mismatched = []
+    # read_page's and write_page's parts, one by one, on their own buffers
+    buf = torch.empty((pt.data.data.shape[1], ps), dtype=torch.int64, pin_memory=True)
+    wbuf = torch.empty_like(buf, pin_memory=True)
+    for lp, pp in zip(pages.tolist(), frames.tolist()):
+        # promote, old then new (the new one is what the frame keeps)
+        pack_ms, copy_ms, copy_host_ms = old_promote(lp, pp, host_pages[lp])
+        lines["old_promote_pack_host_ms"].append(pack_ms)
+        lines["old_promote_copy_ms"].append(copy_ms)
+        lines["old_promote_copy_host_ms"].append(copy_host_ms)
+        sync()
+        t0 = time.perf_counter()
+        PK.write_page(pt, lp, pp, SlotTable(**host_pages[lp]))
+        lines["new_promote_total_host_ms"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        CODEC[layout].pack_rows(fused.wide_columns(SlotTable(**host_pages[lp])), dim=0, out=wbuf)
+        lines["new_promote_pack_host_ms"].append((time.perf_counter() - t0) * 1e3)
+        frame = pt.data.data[pp * ps:(pp + 1) * ps]
+        cols, copy_ms, _ = _ev_ms(lambda: wbuf.to(DEVICE, non_blocking=True))
+        lines["new_promote_copy_ms"].append(copy_ms)
+        lines["new_promote_transpose_ms"].append(_ev_ms(lambda: frame.copy_(cols.t()))[1])
+        # demote: old path, then the one-copy path, then its parts
+        sync()
+        t0 = time.perf_counter()
+        old, gather_ms, copies_ms = old_demote_rows(pp)
+        lines["old_demote_total_host_ms"].append((time.perf_counter() - t0) * 1e3)
+        lines["old_demote_gather_ms"].append(gather_ms)
+        lines["old_demote_copies_host_ms"].append(copies_ms)
+        sync()
+        t0 = time.perf_counter()
+        new = PK.read_page(pt, pp)
+        lines["new_demote_total_host_ms"].append((time.perf_counter() - t0) * 1e3)
+        _, copy_ms, copy_host_ms = _ev_ms(
+            lambda: buf.copy_(frame.t().contiguous(), non_blocking=True))
+        lines["new_demote_copy_ms"].append(copy_ms)
+        lines["new_demote_copy_host_ms"].append(copy_host_ms)
+        t0 = time.perf_counter()
+        wide = mod.unpack_table(type(pt.data)(buf.t()))
+        {f: np.array(getattr(wide, f).numpy()) for f in SlotTable._fields}
+        lines["new_demote_unpack_host_ms"].append((time.perf_counter() - t0) * 1e3)
+        for f in SlotTable._fields:
+            if not (np.array_equal(old[f], new[f]) and old[f].dtype == new[f].dtype
+                    and np.array_equal(new[f], host_pages[lp][f])):
+                mismatched.append((lp, f))
+        # the unbind's two device operations
+        lines["unbind_zero_ms"].append(_ev_ms(lambda: frame.zero_())[1])
+
+        def map_write():
+            pt.page_map[lp] = -1
+        _, w_ms, w_host = _ev_ms(map_write)
+        lines["unbind_map_write_ms"].append(w_ms)
+        lines["unbind_map_write_host_ms"].append(w_host)
+    lp, pp = int(pages[0]), int(frames[0])
+    ops = {"demote_device_ops": _ops_per_call(lambda: PK.read_page(pt, pp))
+           + _ops_per_call(lambda: PK.unbind_page(pt, lp, pp)),
+           "promote_device_ops": _ops_per_call(
+               lambda: PK.write_page(pt, lp, pp, SlotTable(**host_pages[lp])))}
+    del pt, buf, wbuf, cols
+    res = {"phase": "page_moves", **ops, "size": size.name, "layout": layout, "pages": PAGE_MOVES,
+           "page_slots": ps, "page_bytes": ps * BYTES_PER_SLOT[layout],
+           "page_bound_ms": ps * BYTES_PER_SLOT[layout] / PCIE_BYTES_PER_S * 1e3,
+           "rows_differing": mismatched, "card": card}
+    res.update({k: statistics.median(v) for k, v in lines.items()})
+    emit(res)
+    if mismatched:
+        raise AssertionError(f"{layout}: the one-copy demote's rows differ from the old path's")
+    return res
+
+
+# PCIe 5.0 x16, one direction (the H100 SXM's host link), for a page
+# move's bound
+PCIE_BYTES_PER_S = 64e9
+DEMOTER_TARGET = 8
+DEMOTER_ADVANCE_MS = 30_000
+
+
+def _expected_victims(rows, pager_state, now, cfg, want):
+    """The pages the demoter must take, worked out here from its rule
+    (JAX runtime/pager.py `demote_victims`): per shard, while the pool
+    holds fewer than `want` free frames, the resident page with the most
+    census-cold slots (the cold heatmap at `now`, folded onto frames by
+    overlap), then the oldest touch, then the lowest logical page."""
+    page_map, touch, free, n_shards, fps, pps, gpp = pager_state
+    cen = census_oracle(rows, now, ways=cfg.ways, heatmap_width=cfg.census_heatmap_width,
+                        thresholds=tuple(cfg.census_thresholds))
+    hm = cen["cold_heatmap"].astype(np.float64)
+    per = -(-(rows.num_slots // cfg.ways) // cfg.census_heatmap_width)
+    want_out = {}
+    for s in range(n_shards):
+        res = [lp for lp in np.nonzero(page_map >= 0)[0].tolist()
+               if n_shards == 1 or lp // pps == s]
+        cold = {}
+        for lp in res:
+            g0, g1 = int(page_map[lp]) * gpp, (int(page_map[lp]) + 1) * gpp
+            cold[lp] = sum(float(hm[r]) * (min(g1, (r + 1) * per) - max(g0, r * per)) / per
+                           for r in range(g0 // per, min((g1 - 1) // per, len(hm) - 1) + 1))
+        n_free = sum(1 for pp in free if n_shards == 1 or pp // fps == s)
+        order = sorted(res, key=lambda lp: (-cold[lp], int(touch[lp]), lp))
+        take = order[:max(want - n_free, 0)]
+        if any(cold[lp] <= 0 for lp in take):
+            raise AssertionError("a page the demoter would take is not census-cold")
+        want_out[s] = set(take)
+    return want_out
+
+
+def phase_demoter(size: Size, reference, card: str):
+    """The census-gated background demoter at 10M (fused), on a
+    DeviceEngine and an IciEngine of 8 shards, interval 0.05 s, target
+    DEMOTER_TARGET free frames (per shard on the mesh), census TTL 0.05 s:
+    the image restored with every slot just used, the first half of the
+    main path's calls served at a frozen clock (nothing census-cold: the
+    demoter must not move a page), the clock then advanced
+    DEMOTER_ADVANCE_MS so that the slots of shorter windows go cold, and
+    the free target awaited with a deadline. The pages it demoted must be
+    the census-coldest ones its rule picks (worked out here from the
+    table's host copy); then the rest of the calls are served, and every
+    answer and the final snapshot must equal a flat engine's on the same
+    calls and clock, so no key is lost through demote and promote."""
+    snap, calls, _want, _csnap = reference
+    hot = dict(snap)
+    hot["lru"] = np.where(snap["used"], NOW, 0).astype(np.int64)
+    first, rest = calls[:len(calls) // 2], calls[len(calls) // 2:]
+
+    def _answers(eng, items):
+        resp = asyncio.run(V1Service(eng).get_rate_limits([RateLimitReq(**kw) for kw in items]))
+        return [(r.status, r.limit, r.remaining, r.reset_time, r.error) for r in resp]
+
+    base = dict(num_groups=size.num_groups, ways=WAYS, batch_size=B, layout="fused")
+    results = {}
+    with _clock.freeze(NOW) as clk:
+        flat = DeviceEngine(EngineConfig(device=DEVICE.type, **base))
+        try:
+            flat.restore(hot)
+            want_first = [_answers(flat, items) for items in first]
+            clk.advance(DEMOTER_ADVANCE_MS)
+            want_rest = []
+            for items in rest:
+                want_rest.append(_answers(flat, items))
+                clk.advance(700)
+            fsnap = flat.snapshot()
+        finally:
+            flat.close()
+            clk.advance(-DEMOTER_ADVANCE_MS - 700 * len(rest))
+        free_device()
+        pcfg = dict(page_groups=size.page_groups, page_budget=size.page_budget,
+                    page_demote_interval_s=0.05, page_free_target=DEMOTER_TARGET,
+                    census_ttl_s=0.05)
+        for mesh in (False, True):
+            name = cuda_decide.sharded_name("fused") if mesh else cuda_decide.config_name(
+                "fused", True)
+            if mesh:
+                eng = IciEngine(IciEngineConfig(devices=[DEVICE] * MESH_SHARDS, **base, **pcfg))
+            else:
+                eng = DeviceEngine(EngineConfig(device=DEVICE.type, **base, **pcfg))
+            moves = [0]  # pages the demoter's passes moved (not the demand demotes)
+            pager = eng._pager
+            victims = pager.demote_victims
+
+            def counted(*a, **k):
+                before = pager.demotes
+                try:
+                    return victims(*a, **k)
+                finally:
+                    moves[0] += pager.demotes - before
+
+            pager.demote_victims = counted
+            try:
+                eng.restore(hot)
+                got_first = [_answers(eng, items) for items in first]
+                time.sleep(0.3)  # several demoter passes: none may move a page
+                with eng._lock, eng._on_stream():
+                    p = eng._pager
+                    state = (p.page_map.copy(), p.touch.copy(), list(p.free), p.n_shards,
+                             p.frames_per_shard, p.pages_per_shard, p.PK.groups_per_page)
+                    moves_while_hot = moves[0]
+                rows = _scanned_rows(eng, ("used", "lru", "duration", "stamp", "expire_at"))
+                t0 = time.perf_counter()
+                clk.advance(DEMOTER_ADVANCE_MS)
+                expect = _expected_victims(rows, state, eng.now_fn(), eng.cfg, DEMOTER_TARGET)
+                del rows
+                deadline = time.monotonic() + 60
+                while True:
+                    with eng._lock:
+                        p = eng._pager
+                        short = [s for s in range(p.n_shards) if p._free_in_shard(s) < DEMOTER_TARGET]
+                        if not short:
+                            demoted = {s: {lp for lp in np.nonzero((state[0] >= 0)
+                                                                   & (p.page_map < 0))[0].tolist()
+                                           if p.n_shards == 1 or lp // p.pages_per_shard == s}
+                                       for s in range(p.n_shards)}
+                            demoter_demotes = moves[0] - moves_while_hot
+                            break
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"{name}: the demoter never reached its target")
+                    time.sleep(0.02)
+                reach_s = time.perf_counter() - t0
+                got_rest = []
+                for items in rest:
+                    got_rest.append(_answers(eng, items))
+                    clk.advance(700)
+                st = eng.stats()
+                esnap = eng.snapshot()
+            finally:
+                eng.close()
+                clk.advance(-DEMOTER_ADVANCE_MS - 700 * len(rest))
+            mismatches = sum(a != b for gc, wc in zip(got_first + got_rest, want_first + want_rest)
+                             for a, b in zip(gc, wc))
+            res = {"phase": "demoter", "size": size.name, "kernel": name, "mesh": mesh,
+                   "interval_s": 0.05, "free_target": DEMOTER_TARGET,
+                   "advance_ms": DEMOTER_ADVANCE_MS, "shards": state[3],
+                   "demoter_moves_while_hot": moves_while_hot,
+                   "demoter_demotes": demoter_demotes, "seconds_to_target": reach_s,
+                   "victims_as_expected": demoted == expect,
+                   "unexpected_victims": sorted(set().union(*demoted.values())
+                                                - set().union(*expect.values())),
+                   "response_mismatches": mismatches,
+                   "snapshot_columns_differing": _snap_diff(esnap, fsnap),
+                   "promotes": st["promotes"], "demotes": st["demotes"], "card": card}
+            del esnap
+            emit(res)
+            if mismatches or res["snapshot_columns_differing"]:
+                raise AssertionError(f"{name}: the demoter lost or changed a key")
+            if moves_while_hot or demoter_demotes <= 0 or demoted != expect:
+                raise AssertionError(f"{name}: the demoter did not take the census-coldest pages")
+            results[name] = res
+            free_device()
+    return results
+
+
 def run_size(rng, size: Size, card: str):
     """Kernel checks and times for each wave, scan and sharded
     configuration of the size, then its main path and its mesh main
@@ -1917,6 +2403,7 @@ def run_size(rng, size: Size, card: str):
         pmap = pm if paged else None
         kt, pt, err = phase_kernel(rng, image, size, layout, pmap)
         times = phase_times(rng, image, size, layout, pmap, kt, pt, card)
+        phase_wavescan_oracles(rng, image, size, layout, pmap, kt)
         checked[cuda_decide.config_name(layout, paged)] = (err, times)
         del kt, pt
         free_device()
@@ -1931,11 +2418,16 @@ def run_size(rng, size: Size, card: str):
         meshes[cuda_decide.sharded_name(layout)] = (merr, mtimes)
         del kt, pt
         free_device()
-    main, reference = phase_main_path(rng, image, size)
+    main, reference = phase_main_path(rng, image, size, card)
+    if size.page_groups:
+        for layout, _paged in size.configs:
+            phase_page_moves(rng, image, size, layout, card)
     del image
-    mesh_main = phase_mesh_main_path(size, reference)
+    mesh_main = phase_mesh_main_path(size, reference, card)
     phase_edge_main_path(size, reference)
     phase_pipeline(size, reference)
+    if size.page_groups:
+        phase_demoter(size, reference, card)
     del reference
     return ({k: (err, times, main[k]) for k, (err, times) in checked.items()}, scans,
             meshes, mesh_main)

@@ -63,7 +63,7 @@ from gubernator_tpu_torch.ops.layout import (
 # Layouts the kernel takes, with their code in csrc/decide_lane.cuh
 # (LAYOUT_FUSED, LAYOUT_NARROW) and their row codec for the plain version.
 _LAYOUT_CODE = {"fused": 0, "narrow": 1}
-_CODECS = {"fused": fused.FUSED_CODEC, "narrow": narrow.NARROW_CODEC}
+CODECS = {"fused": fused.FUSED_CODEC, "narrow": narrow.NARROW_CODEC}
 
 
 def config_name(layout: str, paged: bool, scan: bool = False) -> str:
@@ -158,7 +158,7 @@ def _check_table(data, ways: int, layout: str, page_map: Optional[torch.Tensor],
                  gpp: int) -> None:
     if layout not in _LAYOUT_CODE:
         raise ValueError(f"the decide kernel takes layouts {tuple(_LAYOUT_CODE)}, not {layout!r}")
-    ncols = _CODECS[layout].ncols
+    ncols = CODECS[layout].ncols
     if data.dtype != torch.int64 or data.dim() != 2 or data.shape[1] != ncols:
         raise ValueError(
             f"{layout} table must be (N, {ncols}) int64, got {tuple(data.shape)} {data.dtype}"
@@ -309,7 +309,7 @@ def _wave(data, page_map, batch, now, *, layout, ways, gpp):
     if dev.type == "cpu":
         _check(data, batch, ways, layout, page_map, gpp)
         return fused.wave_plain(
-            _CODECS[layout], data, page_map, batch, now, ways=ways, gpp=gpp
+            CODECS[layout], data, page_map, batch, now, ways=ways, gpp=gpp
         )
     return _one_wave(data, page_map, batch, now, layout=layout, ways=ways, gpp=gpp)
 
@@ -334,7 +334,7 @@ def _scan(data, page_map, batches, nows, *, layout, ways, gpp) -> DecideOutput:
     steps, b, nows = _check_scan(data, batches, nows, ways, layout, page_map, gpp)
     if dev.type == "cpu":
         return fused.scan_plain(
-            _CODECS[layout], data, page_map, batches, nows, ways=ways, gpp=gpp
+            CODECS[layout], data, page_map, batches, nows, ways=ways, gpp=gpp
         )
     lib = _decide_lib()
     _check_vector_rows(data, layout)
@@ -819,7 +819,7 @@ def decide_sharded(
         _check(data, batch, ways, layout, page_map, gpp)
         _check_shards(data, n_shards, ways)
         return fused.sharded_plain(
-            _CODECS[layout], data, page_map, batch, now, ways=ways,
+            CODECS[layout], data, page_map, batch, now, ways=ways,
             n_shards=n_shards, gpp=gpp,
         )
     return _one_wave(data, page_map, batch, now, layout=layout, ways=ways, gpp=gpp,

@@ -109,13 +109,14 @@ def wide_columns(wide: SlotTable) -> dict:
     return col
 
 
-def _pack_rows(col: dict) -> torch.Tensor:
-    """Fused rows from wide columns (+ `meta`): (..., NCOLS) int64."""
+def _pack_rows(col: dict, dim: int = -1, out=None) -> torch.Tensor:
+    """Fused rows from wide columns (+ `meta`): (..., NCOLS) int64, or
+    with dim=0 the (NCOLS, ...) transpose (into `out` when given)."""
     cols = [None] * NCOLS
     for f, c in _WIDE_COLS.items():
         cols[c] = col[f].to(I64)
     cols[META] = col["meta"].to(I64)
-    return torch.stack(cols, dim=-1)
+    return torch.stack(cols, dim=dim, out=out)
 
 
 def pack_table(wide: SlotTable, device=None) -> FusedTable:

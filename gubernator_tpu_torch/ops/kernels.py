@@ -7,7 +7,9 @@ CUDA kernel (ops/cuda_decide.py) on a CUDA table, the plain PyTorch
 version on a CPU table; `decide_scan` runs T waves in order, as one
 launch of the scan kernel on a CUDA table. Snapshots are exchanged in the wide format
 (to_wide/from_wide), the same format the JAX package uses.
-`get_paged_kernels` puts either layout behind a page map (ops/paged.py).
+`get_paged_kernels` puts either layout behind a page map (ops/paged.py);
+`get_census` and `get_admission` give the layout's table scans
+(ops/census.py, ops/admission.py).
 """
 
 from __future__ import annotations
@@ -74,6 +76,25 @@ def get_kernels(layout: str) -> Kernels:
         raise ValueError(
             f"unknown table layout {layout!r}: this package serves {LAYOUTS}"
         ) from None
+
+
+def get_census(layout: str, ways: int, **kwargs):
+    """The census scan of `layout` (ops/census.py): (table, now) ->
+    CensusOutput, one per (layout, geometry, knobs). On a paged table the
+    engine scans the physical frames (`PagedTable.data`)."""
+    get_kernels(layout)  # validates the layout
+    from gubernator_tpu_torch.ops.census import make_census
+
+    return make_census(layout, ways, **kwargs)
+
+
+def get_admission(layout: str, ways: int, **kwargs):
+    """The admission-accounting scan of `layout` (ops/admission.py):
+    (table, now) -> AdmissionOutput, scanned as the census is."""
+    get_kernels(layout)  # validates the layout
+    from gubernator_tpu_torch.ops.admission import make_admission
+
+    return make_admission(layout, ways, **kwargs)
 
 
 def get_paged_kernels(

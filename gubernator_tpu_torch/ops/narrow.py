@@ -103,8 +103,9 @@ class NarrowTable(NamedTuple):
         )
 
 
-def _pack_rows(col: dict) -> torch.Tensor:
-    """Narrow rows from wide columns (+ `meta`): (..., NCOLS) int64."""
+def _pack_rows(col: dict, dim: int = -1, out=None) -> torch.Tensor:
+    """Narrow rows from wide columns (+ `meta`): (..., NCOLS) int64, or
+    with dim=0 the (NCOLS, ...) transpose (into `out` when given)."""
     cols = [None] * NCOLS
     cols[KHI] = col["key_hi"]
     cols[KLO] = col["key_lo"]
@@ -115,7 +116,7 @@ def _pack_rows(col: dict) -> torch.Tensor:
     cols[DUR] = col["duration"]
     cols[REM] = col["remaining"]
     cols[STM] = col["stamp"]
-    return torch.stack([c.to(I64) for c in cols], dim=-1)
+    return torch.stack([c.to(I64) for c in cols], dim=dim, out=out)
 
 
 def _wide_view(rows: torch.Tensor) -> SlotTable:

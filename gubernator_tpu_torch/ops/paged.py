@@ -17,21 +17,31 @@ the plain version with the same (Pallas) semantics. The runtime pager
 (`runtime/pager.py`) promotes a wave's pages before the wave runs, so
 sentinel lanes carry no live traffic.
 
-Page moves are positional: `extract_page` gathers a frame's rows as a
-wide SlotTable and `write_page` packs wide host rows back into a frame
-with one host-to-device copy, so demote -> promote is an identity on
-table state. The page ops update the table and the device map IN PLACE
-on PyTorch's current stream (JAX donates and returns new buffers); the
-caller keeps the pager's host mirror of the map in step.
+Page moves are positional, so demote -> promote is an identity on
+table state. A demote reads a frame with `read_page`: its packed rows
+(one contiguous span of the layout's table), transposed on the card so
+that each column is contiguous, go to a reused pinned host buffer in
+ONE device-to-host copy, and are unpacked to wide host rows on the host
+by the layout's own `to_wide` over CPU tensors. A promote (`write_page`)
+packs wide host rows into a reused pinned buffer, column by column, and
+sends them in ONE host-to-device copy, transposed into the frame on the
+card, without waiting for the device. (Unpacking or packing row-major
+rows on the host costs several times the copy: PERF.md, PR 8.)
+`extract_page` (the JAX package's op) gathers a frame's rows as a wide
+SlotTable on the table's device. The page ops update the table and the
+device map IN PLACE on PyTorch's current stream (JAX donates and
+returns new buffers); the caller keeps the pager's host mirror of the
+map in step.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
+import numpy as np
 import torch
 
-from gubernator_tpu_torch.ops import cuda_decide
+from gubernator_tpu_torch.ops import cuda_decide, fused
 from gubernator_tpu_torch.ops.kernels import BYTES_PER_SLOT, get_kernels
 from gubernator_tpu_torch.ops.layout import SlotTable
 
@@ -86,6 +96,7 @@ class PagedKernels(NamedTuple):
     bind_page: object  # (pt, lp, pp) -> pt: zero frame pp, map lp -> pp
     unbind_page: object  # (pt, lp, pp) -> pt: zero frame pp, map lp -> -1
     extract_page: object  # (pt, pp) -> SlotTable rows (page_slots,), a copy
+    read_page: object  # (pt, pp) -> {field: numpy (page_slots,)}: one copy to the host
     write_page: object  # (pt, lp, pp, wide rows) -> pt, map lp -> pp
     # --- geometry ---
     ways: int
@@ -168,9 +179,50 @@ def make_paged_kernels(
         slots = int(pp) * page_slots + torch.arange(page_slots, dtype=torch.int64, device=dev)
         return base.gather_rows(pt.data, slots)
 
+    # Pinned host staging of page moves, (columns, page_slots), made at
+    # the first move and reused: page ops run under the owning engine's
+    # table lock. A read waits for its copy and copies out of the buffer
+    # before it returns; a write waits, before it refills its buffer,
+    # for the copy that last emptied it (`stage["written"]`).
+    stage = {}
+
+    def _stage(frame):
+        if not stage:
+            shape = (frame.shape[1], frame.shape[0])
+            pin = frame.device.type == "cuda"
+            stage.update(read=torch.empty(shape, dtype=frame.dtype, pin_memory=pin),
+                         write=torch.empty(shape, dtype=frame.dtype, pin_memory=pin),
+                         written=None)
+        return stage
+
+    def _read_page(pt, pp) -> Dict[str, np.ndarray]:
+        frame = _frame(pt, pp)
+        buf = _stage(frame)["read"]
+        if frame.device.type == "cuda":
+            buf.copy_(frame.t().contiguous(), non_blocking=True)  # one device-to-host copy
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()  # the copy, behind every wave queued before it
+        else:
+            buf.copy_(frame.t())
+        wide = base.to_wide(type(pt.data)(buf.t()))  # rows whose columns are contiguous
+        return {f: np.array(getattr(wide, f).numpy()) for f in SlotTable._fields}
+
     def _write_page(pt, lp, pp, rows_wide):
-        host = base.from_wide(SlotTable(*rows_wide), None)  # packed where the rows are
-        _frame(pt, pp).copy_(host.data)  # one host-to-device copy
+        frame = _frame(pt, pp)
+        st = _stage(frame)
+        if st["written"] is not None:
+            st["written"].synchronize()
+        buf = st["write"]
+        cuda_decide.CODECS[layout].pack_rows(
+            fused.wide_columns(SlotTable(*rows_wide)), dim=0, out=buf)
+        if frame.device.type == "cuda":
+            cols = buf.to(frame.device, non_blocking=True)  # one host-to-device copy
+            st["written"] = torch.cuda.Event()
+            st["written"].record()
+            frame.copy_(cols.t())
+        else:
+            frame.copy_(buf.t())
         pt.page_map[int(lp)] = int(pp)
         return pt
 
@@ -199,6 +251,7 @@ def make_paged_kernels(
         bind_page=_bind_page,
         unbind_page=_unbind_page,
         extract_page=_extract_page,
+        read_page=_read_page,
         write_page=_write_page,
         ways=ways,
         groups_per_page=gpp,

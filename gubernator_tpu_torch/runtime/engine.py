@@ -50,10 +50,19 @@ the device holds `page_budget` frames of `page_groups` groups behind a
 page map (ops/paged.py), and the host tier holds demoted pages
 (runtime/pager.py). Before each wave's decide the pager makes every
 page the wave touches resident, demoting the least recently touched
-pages when no frame is free. Pages demote only on that demand: the JAX
-engine's background demoter waits for the table census. A demote's
-copy to the host waits for every wave queued on the stream, tickets in
-flight included: it stays correct and serializes the pipeline.
+pages when no frame is free. A background demoter (`_demote_loop`, every
+`page_demote_interval_s`) keeps `page_free_target` frames free (per
+shard on a mesh) so that promotes rarely pay a demote: census-cold pages
+first, and not at all while the census sees no cold slot on a table
+with live rows. A demote's copy to the host waits for every wave queued
+on the stream, tickets in flight included: it stays correct and
+serializes the pipeline.
+
+Observatories (JAX `table_census`, `admission_snapshot`): one census or
+admission scan (ops/census.py, ops/admission.py) per TTL, enqueued on
+the engine's stream under the table lock and read back after the lock
+is released, behind one event. A paged table's physical frames are
+scanned on the device and its host tier with the numpy oracles.
 
 Thread model: callers on any thread enqueue; one pump thread assembles
 and launches; the completion thread (depth >= 2) reads the decisions
@@ -85,7 +94,9 @@ from gubernator_tpu_torch.api.types import (
 from gubernator_tpu_torch.ops import cuda_decide
 from gubernator_tpu_torch.models.bucket import MAX_COUNT, MAX_DURATION_MS
 from gubernator_tpu_torch.ops.encode import EncodeError, encode_one, encode_rows
-from gubernator_tpu_torch.ops.kernels import LAYOUTS
+from gubernator_tpu_torch.ops.admission import admission_oracle
+from gubernator_tpu_torch.ops.census import census_oracle
+from gubernator_tpu_torch.ops.kernels import BYTES_PER_SLOT, LAYOUTS, get_admission, get_census
 from gubernator_tpu_torch.ops.layout import (
     BATCH_DTYPES,
     SLOT_DTYPES,
@@ -122,6 +133,15 @@ class EngineConfig:
     # raises without one; pass "cpu" to run the plain version on the CPU.
     device: str = "cuda"
     layout: str = "fused"  # "fused" or "narrow"
+    # ---- observatories (docs/monitoring.md "Table census", "Admission") ----
+    # TTL of the cached census snapshot: at most one census scan per TTL.
+    census_ttl_s: float = 5.0
+    # A used slot is "cold at k" when its idle time exceeds k x its duration.
+    census_thresholds: tuple = (1, 4, 16)
+    # Regions of the census heatmaps (contiguous runs of groups).
+    census_heatmap_width: int = 64
+    # TTL of the cached admission snapshot.
+    admission_ttl_s: float = 5.0
     # ---- paged table (GUBER_TABLE_PAGE_*) ----
     # Groups per page: 0 keeps the flat table; > 0 carves the device
     # table into pages behind a page map, with a host cold tier for
@@ -130,9 +150,12 @@ class EngineConfig:
     # Resident frames on the device; required > 0 when page_groups > 0.
     # Device table bytes = page_budget x page_groups x ways x bytes/slot.
     page_budget: int = 0
-    # Background demoter cadence. The demoter is gated by the table
-    # census, which is not ported: only 0 (demand demotes) is served.
-    page_demote_interval_s: float = 0.0
+    # Seconds between background demoter passes; 0: no demoter thread
+    # (pages then demote only when a wave needs a frame).
+    page_demote_interval_s: float = 2.0
+    # Free frames the demoter keeps (per shard on a mesh), so promotes on
+    # the serving path rarely pay a demote under the lock.
+    page_free_target: int = 1
     # Flushes in flight (GUBER_PIPELINE_DEPTH): 1 is the serial pump
     # (dispatch, read back, resolve, repeat); >= 2 adds a completion
     # thread that reads tickets back in dispatch order while the pump
@@ -278,11 +301,6 @@ class MeshEngine:
                 )
         elif self.device.type != "cpu":
             raise ValueError(f"device must be cuda or cpu, not {self.device}")
-        if cfg.page_groups > 0 and cfg.page_demote_interval_s > 0:
-            raise NotImplementedError(
-                "page_demote_interval_s > 0: the background demoter comes "
-                "with the table-census slice; pass 0 (pages demote on demand)"
-            )
         if cfg.pipeline_depth < 1:
             raise ValueError("pipeline_depth must be >= 1")
         self.cfg = cfg
@@ -296,6 +314,20 @@ class MeshEngine:
         self._memo = cuda_decide.TableMemo()
         # the GLOBAL replica tier: None on every topology until it is ported
         self._rtier = self.topo.build_replica(cfg)
+        # The observatories' scans (one per TTL) and their caches.
+        self._census_thresholds = tuple(int(k) for k in cfg.census_thresholds)
+        self._census = get_census(
+            cfg.layout, cfg.ways, heatmap_width=int(cfg.census_heatmap_width),
+            thresholds=self._census_thresholds,
+        )
+        self._admission = get_admission(cfg.layout, cfg.ways)
+        self._census_lock = threading.Lock()
+        self._census_cache: Optional[dict] = None
+        self._census_ts = 0.0
+        self._census_prev = None  # (t_mono, misses, evictions, live)
+        self._admission_lock = threading.Lock()
+        self._admission_cache: Optional[dict] = None
+        self._admission_ts = 0.0
 
         self._lock = threading.Lock()  # the table
         self._keys_lock = threading.Lock()  # the host key dictionary
@@ -332,6 +364,16 @@ class MeshEngine:
             target=self._pump, name=self.topo.thread_name, daemon=True
         )
         self._thread.start()
+        # Background demoter (paged tables): keeps free frames by
+        # evacuating census-cold pages to the host tier.
+        self._demote_stop = threading.Event()
+        self._demote_thread: Optional[threading.Thread] = None
+        if self._pager is not None and float(cfg.page_demote_interval_s or 0) > 0:
+            self._demote_thread = threading.Thread(
+                target=self._demote_loop, name=self.topo.thread_name + "-demoter",
+                daemon=True,
+            )
+            self._demote_thread.start()
 
     def _on_stream(self):
         """Enter the engine's stream (a card) or nothing (the CPU)."""
@@ -393,7 +435,12 @@ class MeshEngine:
         and the completion thread. The pump completes every flush in
         flight first, then serves entries that raced the shutdown for up
         to DRAIN_TIMEOUT_S; what is left fails with the typed retryable
-        status (ERR_ENGINE_DRAINING)."""
+        status (ERR_ENGINE_DRAINING). The page demoter stops first: it
+        takes the table lock and enqueues device work."""
+        self._demote_stop.set()
+        dem = self._demote_thread
+        if dem is not None and dem.is_alive():
+            dem.join(timeout=timeout_s)
         self._queue.put(_STOP)
         self._thread.join(timeout=timeout_s)
         self._running = False
@@ -435,6 +482,209 @@ class MeshEngine:
                 resident_pages=pager.resident_count(), host_pages=pager.host_count(),
             )
         return out
+
+    # -- table census (docs/monitoring.md "Table census") --------------------
+
+    def table_census(self, max_age_s: Optional[float] = None) -> dict:
+        """The TTL-cached table census: at most one scan per
+        `census_ttl_s` (`max_age_s` overrides it; 0 forces a fresh scan).
+        The scan is enqueued under the table lock and read back after it
+        is released (`_census_scan`)."""
+        ttl = float(self.cfg.census_ttl_s) if max_age_s is None else float(max_age_s)
+        with self._census_lock:
+            if self._census_cache is not None and time.monotonic() - self._census_ts < ttl:
+                return self._census_cache
+            snap = self._census_scan()
+            snap["churn"] = self._census_churn(snap)
+            self._census_cache = snap
+            self._census_ts = time.monotonic()
+            return snap
+
+    def cached_census(self) -> Optional[dict]:
+        """The census snapshot only if one is cached: never scans."""
+        with self._census_lock:
+            return self._census_cache
+
+    def occupancy_stats(self) -> dict:
+        """live, slots, occupancy and full_group_ratio of the cached
+        census."""
+        c = self.table_census()
+        return {
+            "live": c["live"],
+            "slots": c["slots"],
+            "occupancy": c["occupancy"],
+            "full_group_ratio": c["full_group_ratio"],
+        }
+
+    def _census_view(self, table):
+        """What the scans read: a paged table's PHYSICAL frames (its host
+        tier goes through the numpy oracles), else the table."""
+        return table.data if self._pager is not None else table
+
+    def _census_scan(self) -> dict:
+        """One census (called with _census_lock held): the scan enqueued
+        on the engine's stream under the table lock, its O(buckets)
+        result read back after the lock is released."""
+        cfg = self.cfg
+        now = self.now_fn()
+        host_pages = pages_snap = None
+        with self._lock, self.topo.dispatch_guard(), self._on_stream():
+            pending = _read_back(self._census(self._census_view(self.table), now))
+            if self._pager is not None:
+                # host rows blocks are replaced, never changed in place
+                host_pages = self._pager.host_tier_copy()
+                pages_snap = self._pager.pages_snapshot()
+        dev_groups = (
+            self.K.num_phys_pages * self.K.groups_per_page
+            if self._pager is not None else cfg.num_groups
+        )
+        primary = self.topo.primary_tier
+        tiers = {primary: self._census_tier(pending(), now, dev_groups)}
+        if self._pager is not None:
+            tiers["host"] = self._census_host_tier(host_pages, now)
+        snap = _census_combine(tiers, primary=primary)
+        if pages_snap is not None:
+            snap["pages"] = pages_snap
+        return snap
+
+    def _census_tier(self, out: dict, now: int, groups: int) -> dict:
+        cfg = self.cfg
+        return _census_tier_snapshot(
+            out, now=now, layout=cfg.layout, groups=groups, ways=cfg.ways,
+            bytes_per_slot=BYTES_PER_SLOT[cfg.layout], thresholds=self._census_thresholds,
+            heatmap_width=int(cfg.census_heatmap_width),
+        )
+
+    def _host_tier_rows(self, host_pages: dict) -> SlotTable:
+        """The host tier's pages in logical order as one wide host image
+        (one empty page when there is none: zero counts)."""
+        if not host_pages:
+            return SlotTable(**wide_zeros(self.K.page_slots))
+        lps = sorted(host_pages)
+        return SlotTable(**{
+            f: np.concatenate([host_pages[lp][f] for lp in lps]) for f in SlotTable._fields
+        })
+
+    def _census_host_tier(self, host_pages: dict, now: int) -> dict:
+        """The host tier's census with the numpy oracle, in the device
+        tier's form (0 slots when the tier is empty)."""
+        cfg = self.cfg
+        out = census_oracle(
+            self._host_tier_rows(host_pages), now, ways=cfg.ways,
+            heatmap_width=int(cfg.census_heatmap_width), thresholds=self._census_thresholds,
+        )
+        groups = len(host_pages or ()) * (self.K.page_slots // cfg.ways)
+        return self._census_tier(out, now, groups)
+
+    def _census_churn(self, snap: dict) -> dict:
+        """Insertions, unexpired evictions and recycles (inserts that
+        reclaimed a dead resident slot: the remainder of the insertions)
+        since the last census, and their rates. _census_lock held."""
+        with self._stats_lock:
+            misses = self._stats["cache_misses"]
+            evics = self._stats["unexpired_evictions"]
+        t = time.monotonic()
+        prev = self._census_prev
+        self._census_prev = (t, misses, evics, snap["live"])
+        if prev is None:
+            return {
+                "interval_s": 0.0, "insertions": 0, "evictions": 0, "overwrite_recycles": 0,
+                "insert_per_s": 0.0, "evict_per_s": 0.0, "recycle_per_s": 0.0,
+            }
+        dt = max(t - prev[0], 1e-9)
+        d_ins = max(misses - prev[1], 0)
+        d_ev = max(evics - prev[2], 0)
+        d_live = snap["live"] - prev[3]
+        d_rec = max(d_ins - d_ev - max(d_live, 0), 0)
+        return {
+            "interval_s": round(dt, 6),
+            "insertions": d_ins,
+            "evictions": d_ev,
+            "overwrite_recycles": d_rec,
+            "insert_per_s": round(d_ins / dt, 3),
+            "evict_per_s": round(d_ev / dt, 3),
+            "recycle_per_s": round(d_rec / dt, 3),
+        }
+
+    # -- admission accounting (docs/monitoring.md "Admission") ---------------
+
+    def admission_snapshot(self, max_age_s: Optional[float] = None) -> dict:
+        """The TTL-cached admitted-vs-limit accounting: at most one scan
+        per `admission_ttl_s` (`max_age_s` overrides it), dispatched as
+        the census is."""
+        ttl = float(self.cfg.admission_ttl_s) if max_age_s is None else float(max_age_s)
+        with self._admission_lock:
+            if (self._admission_cache is not None
+                    and time.monotonic() - self._admission_ts < ttl):
+                return self._admission_cache
+            snap = self._admission_scan()
+            self._admission_cache = snap
+            self._admission_ts = time.monotonic()
+            return snap
+
+    def _admission_scan(self) -> dict:
+        """One admission pass (_admission_lock held): the device tier's
+        scan, and a paged table's host tier with the numpy oracle (a
+        demoted key's window still counts)."""
+        now = self.now_fn()
+        host_pages = None
+        with self._lock, self.topo.dispatch_guard(), self._on_stream():
+            pending = _read_back(self._admission(self._census_view(self.table), now))
+            if self._pager is not None:
+                host_pages = self._pager.host_tier_copy()
+        tiers = {self.topo.primary_tier: _admission_tier_dict(pending())}
+        if self._pager is not None:
+            tiers["host"] = self._admission_host_tier(host_pages, now)
+        snap = _admission_combine(tiers)
+        snap["now_ms"] = now
+        return snap
+
+    def _admission_host_tier(self, host_pages: dict, now: int) -> dict:
+        return _admission_tier_dict(admission_oracle(self._host_tier_rows(host_pages), now))
+
+    # -- background page demoter ----------------------------------------------
+
+    def _demote_loop(self) -> None:
+        """Every `page_demote_interval_s` (at least 50 ms) one
+        `_demote_once` pass until close(). A pass that fails is dropped:
+        the serving path's demand demotes cover for the demoter."""
+        interval = max(float(self.cfg.page_demote_interval_s), 0.05)
+        while not self._demote_stop.wait(interval):
+            try:
+                self._demote_once()
+            except Exception:  # pragma: no cover - defensive, as the JAX engine's
+                if self._demote_stop.is_set():
+                    return
+
+    def _demote_once(self) -> None:
+        """One demoter pass: nothing while the pool holds
+        `page_free_target` free frames (a check without the lock;
+        `demote_victims` re-reads under it) or while the census sees no
+        cold slot on a table with live rows (a fully hot resident set is
+        not thrashed through the host tier); else the census's cold
+        heatmap folded into per-page coldness and `demote_victims` under
+        the table lock, on the engine's stream."""
+        pager = self._pager
+        want = int(self.cfg.page_free_target or 0)
+        if want <= 0 or len(pager.free) >= want:
+            return
+        census = self.table_census()
+        dev = census.get("tiers", {}).get(self.topo.primary_tier, census)
+        cold = dev.get("cold") or []
+        cold_slots = int(cold[0]["slots"]) if cold else 0
+        if int(dev.get("live", 0)) > 0 and cold_slots == 0:
+            return
+        ch = dev.get("cold_heatmap")
+        with self._lock, self.topo.dispatch_guard(), self._on_stream():
+            # the fold reads page_map, which serving rebinds under the lock
+            coldness = None
+            if ch:
+                coldness = pager.coldness_from_heatmap(
+                    ch, int(dev.get("heatmap_groups_per_region", 1))
+                )
+            self.table = pager.demote_victims(
+                self.table, want_free=want, min_idle_ticks=1, coldness=coldness
+            )
 
     # -- pump ----------------------------------------------------------------
 
@@ -980,6 +1230,163 @@ class DeviceEngine(MeshEngine):
     """MeshEngine at mesh shape (1,): the single-device engine that
     V1Service and the tests construct, its table on `EngineConfig.device`
     (the default topology). Every behaviour lives in the core."""
+
+
+def _read_back(out):
+    """Enqueue the copy of a scan's O(buckets) tensors (a NamedTuple) to
+    the host: one int64 vector, on a card copied to pinned memory on the
+    current stream behind one event. Returns a function that waits for
+    it (call it after releasing the table lock) and returns {field:
+    numpy array}."""
+    shapes = [tuple(t.shape) for t in out]
+    flat = torch.cat([t.reshape(-1).to(torch.int64) for t in out])
+    done = None
+    if flat.device.type == "cuda":
+        host = torch.empty(flat.shape, dtype=torch.int64, pin_memory=True)
+        host.copy_(flat, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+    else:
+        host = flat
+
+    def wait() -> dict:
+        if done is not None:
+            done.synchronize()
+        vals, res, off = host.numpy(), {}, 0
+        for f, shape in zip(out._fields, shapes):
+            n = int(np.prod(shape, dtype=np.int64))
+            res[f] = vals[off:off + n].reshape(shape).copy()
+            off += n
+        return res
+
+    return wait
+
+
+def _census_tier_snapshot(out, *, now, layout, groups, ways, bytes_per_slot, thresholds,
+                          heatmap_width) -> dict:
+    """One tier's census result ({field: value}, O(buckets)) as the
+    JSON-safe dict of the JAX engine's snapshot."""
+    a = {f: np.asarray(v).tolist() for f, v in out.items()}
+    slots = groups * ways
+    live = a["live"]
+    waste = a["waste"]
+    full_groups = a["full_groups"]
+    return {
+        "layout": layout,
+        "groups": groups,
+        "ways": ways,
+        "slots": slots,
+        "bytes_per_slot": bytes_per_slot,
+        "now_ms": int(now),
+        "live": live,
+        "occupancy": live / float(slots) if slots else 0.0,
+        "full_groups": full_groups,
+        "full_group_ratio": full_groups / float(groups) if groups else 0.0,
+        "waste": waste,
+        "waste_frac": waste / float(slots) if slots else 0.0,
+        "age_ms_hist": a["age_hist"],
+        "age_ms_sum": a["age_sum"],
+        "idle_ms_hist": a["idle_hist"],
+        "idle_ms_sum": a["idle_sum"],
+        "heatmap": a["heatmap"],
+        "cold_heatmap": a["cold_heatmap"],
+        "heatmap_groups_per_region": -(-groups // heatmap_width),
+        "fill_hist": a["fill_hist"],
+        "max_full_run": a["max_full_run"],
+        "cold": [
+            {
+                "multiplier": int(k),
+                "slots": c,
+                "frac": c / float(slots) if slots else 0.0,
+                "reclaimable_bytes": c * bytes_per_slot,
+            }
+            for k, c in zip(thresholds, a["cold"])
+        ],
+    }
+
+
+def _census_combine(tiers: Dict[str, dict], primary: str) -> dict:
+    """The census snapshot: residency, age and cold numbers summed over
+    the tiers, the primary tier's structural fields (heatmaps, fill
+    histogram, probe pressure), and every tier under "tiers"."""
+    p = tiers[primary]
+    live = sum(t["live"] for t in tiers.values())
+    slots = sum(t["slots"] for t in tiers.values())
+    waste = sum(t["waste"] for t in tiers.values())
+
+    def vsum(field):
+        return [sum(vals) for vals in zip(*(t[field] for t in tiers.values()))]
+
+    cold = []
+    for i, entry in enumerate(p["cold"]):
+        c = sum(t["cold"][i]["slots"] for t in tiers.values())
+        cold.append({
+            "multiplier": entry["multiplier"],
+            "slots": c,
+            "frac": c / float(slots) if slots else 0.0,
+            "reclaimable_bytes": sum(t["cold"][i]["reclaimable_bytes"] for t in tiers.values()),
+        })
+    return {
+        "v": 1,
+        "layout": p["layout"],
+        "groups": p["groups"],
+        "ways": p["ways"],
+        "slots": slots,
+        "bytes_per_slot": p["bytes_per_slot"],
+        "now_ms": p["now_ms"],
+        "live": live,
+        "occupancy": live / float(slots) if slots else 0.0,
+        "full_groups": p["full_groups"],
+        "full_group_ratio": p["full_group_ratio"],
+        "waste": waste,
+        "waste_frac": waste / float(slots) if slots else 0.0,
+        "age_ms_hist": vsum("age_ms_hist"),
+        "age_ms_sum": sum(t["age_ms_sum"] for t in tiers.values()),
+        "idle_ms_hist": vsum("idle_ms_hist"),
+        "idle_ms_sum": sum(t["idle_ms_sum"] for t in tiers.values()),
+        "heatmap": p["heatmap"],
+        "cold_heatmap": p["cold_heatmap"],
+        "heatmap_groups_per_region": p["heatmap_groups_per_region"],
+        "fill_hist": p["fill_hist"],
+        "max_full_run": p["max_full_run"],
+        "cold": cold,
+        "tiers": tiers,
+    }
+
+
+def _admission_tier_dict(out: dict) -> dict:
+    """One tier's admission result ({field: value}) as plain ints."""
+    return {
+        "keys": int(out["keys"]),
+        "admitted_hits": int(out["admitted_sum"]),
+        "limit_hits": int(out["limit_sum"]),
+        "excess_hits": int(out["excess_sum"]),
+        "excess_keys": int(out["excess_keys"]),
+        "max_excess": int(out["max_excess"]),
+        "over_limit_keys": int(out["over_limit_keys"]),
+        "excess_hist": [int(x) for x in out["excess_hist"]],
+    }
+
+
+def _admission_combine(tiers: Dict[str, dict]) -> dict:
+    """The admission snapshot: every count summed over the tiers (each
+    key lives in one), max_excess their maximum, and the over-admission
+    ratio (excess hits per configured limit hit, 0 on an empty table)."""
+    excess = sum(t["excess_hits"] for t in tiers.values())
+    limit = sum(t["limit_hits"] for t in tiers.values())
+    return {
+        "v": 1,
+        "keys": sum(t["keys"] for t in tiers.values()),
+        "admitted_hits": sum(t["admitted_hits"] for t in tiers.values()),
+        "limit_hits": limit,
+        "excess_hits": excess,
+        "excess_keys": sum(t["excess_keys"] for t in tiers.values()),
+        "max_excess": max(t["max_excess"] for t in tiers.values()),
+        "over_limit_keys": sum(t["over_limit_keys"] for t in tiers.values()),
+        "excess_ratio": excess / float(limit) if limit else 0.0,
+        "excess_hist": [sum(vals) for vals in zip(*(t["excess_hist"] for t in tiers.values()))],
+        "tiers": tiers,
+    }
 
 
 def _assemble_column_waves(cols, hi, lo, grp, now: int, batch_size: int, max_waves: int):

@@ -6,7 +6,8 @@ MeshEngine (runtime/engine.py) bound to the mesh topology
 mesh's shards and every wave runs the owner-sharded decide
 (parallel/mesh.py), one kernel launch per wave on a card, which answers
 every lane at its owner. It replaces peer forwarding inside one process.
-Paging works as on one table, with one frame pool per shard.
+Paging works as on one table, with one frame pool per shard, which the
+background demoter keeps at `page_free_target` free frames each.
 
 The JAX engine also runs a GLOBAL replica tier beside the sharded table
 (per-device replicas and a sync thread, parallel/ici.py). That tier is
@@ -51,14 +52,22 @@ class IciEngineConfig:
     batch_wait_s: float = 500e-6
     max_flush_items: int = 8192
     max_waves: int = 32  # per-flush wave cap; overflow carries over
+    # Observatories, as in EngineConfig (the census and the admission
+    # scan cover the sharded table; the replica tier comes with GLOBAL).
+    census_ttl_s: float = 5.0
+    census_thresholds: tuple = (1, 4, 16)
+    census_heatmap_width: int = 64
+    admission_ttl_s: float = 5.0
     layout: str = "fused"
     # Paged table: page_groups > 0 pages the sharded table, the page map
     # shared by the shards, the frames split into one pool per shard
     # (page_budget must divide by the shard count).
     page_groups: int = 0
     page_budget: int = 0
-    # Only 0 (demand demotes) is served, as in EngineConfig.
-    page_demote_interval_s: float = 0.0
+    # The background demoter, as in EngineConfig; the free-frame target
+    # holds for each shard's pool.
+    page_demote_interval_s: float = 2.0
+    page_free_target: int = 1
     pipeline_depth: int = 2  # flushes in flight, as in EngineConfig
 
 

@@ -19,11 +19,14 @@ least recently touched resident page (lowest tick, ties to the lowest
 logical page), and every bind, unbind and write updates the device map
 (through the page op) and the host mirror together.
 
-A demote copies the page to the host (`extract_page`, then a blocking
-device-to-host copy on PyTorch's current stream, which orders it after
-every decide launched before it) and then unbinds the frame. Only
-demand demotes exist here: the JAX engine's background demoter is gated
-by the table census, which is not ported yet.
+A demote copies the page to the host in one copy (`read_page`: the
+frame's packed rows to a pinned buffer on PyTorch's current stream,
+which orders it after every decide launched before it, then unpacked on
+the host) and then unbinds the frame. Pages demote on demand, when a
+wave needs a frame and none is free, and in the background
+(`demote_victims`, the engine's demoter): census-cold pages first
+(`coldness_from_heatmap`), the LRU touch tick breaking ties, until each
+shard's pool has the free-frame target.
 """
 
 from __future__ import annotations
@@ -206,8 +209,7 @@ class Pager:
         pp = int(self.page_map[lp])
         if pp < 0:
             return table
-        rows = self.PK.extract_page(table, pp)
-        host = {f: getattr(rows, f).cpu().numpy() for f in SlotTable._fields}
+        host = self.PK.read_page(table, pp)
         if host["used"].any():
             self.host_tier[lp] = host
         table = self.PK.unbind_page(table, lp, pp)
@@ -227,6 +229,68 @@ class Pager:
         if not candidates:
             return None
         return min(candidates, key=lambda lp: int(self.touch[lp]))
+
+    def coldness_from_heatmap(self, cold_heatmap, groups_per_region: int) -> Dict[int, float]:
+        """Fold the census's per-region cold-slot heatmap (over PHYSICAL
+        groups: the census scans the frames) into a coldness score per
+        resident LOGICAL page: the cold counts of the regions its frame's
+        groups overlap, each weighted by the overlap's share of the
+        region."""
+        hm = np.asarray(cold_heatmap, dtype=np.float64)
+        per = max(1, int(groups_per_region))
+        gpp = self.PK.groups_per_page
+        out: Dict[int, float] = {}
+        for lp in np.nonzero(self.page_map >= 0)[0].tolist():
+            pp = int(self.page_map[lp])
+            g0, g1 = pp * gpp, (pp + 1) * gpp
+            total = 0.0
+            for r in range(g0 // per, min((g1 - 1) // per, len(hm) - 1) + 1):
+                overlap = min(g1, (r + 1) * per) - max(g0, r * per)
+                if overlap > 0:
+                    total += float(hm[r]) * (overlap / float(per))
+            out[lp] = total
+        return out
+
+    def _pick_victim(self, coldness: Optional[Dict[int, float]],
+                     shard: Optional[int] = None) -> Optional[int]:
+        """The demoter's victim: the census-coldest resident page, the
+        LRU touch tick breaking ties (and the whole order without
+        coldness), then the lowest logical page; of `shard` only when
+        given."""
+        resident = [
+            lp for lp in np.nonzero(self.page_map >= 0)[0].tolist()
+            if shard is None or self.shard_of_page(lp) == shard
+        ]
+        if not resident:
+            return None
+        cold = coldness or {}
+        return min(resident, key=lambda lp: (-cold.get(lp, 0.0), int(self.touch[lp])))
+
+    def demote_victims(self, table, want_free: int, min_idle_ticks: int = 0, coldness=None):
+        """The background demoter's step: demote resident pages until
+        `want_free` frames are free, census-coldest first when `coldness`
+        (`coldness_from_heatmap`) is given, LRU otherwise. With
+        min_idle_ticks > 0 a page touched within that many
+        `ensure_resident` rounds is spared unless the census counts it
+        cold (and the pass stops there). On a mesh the target holds for
+        EACH shard's pool, from that shard's residents. Returns the
+        table."""
+        for shard in range(self.n_shards):
+            while self._free_in_shard(shard) < want_free:
+                victim = self._pick_victim(coldness, shard=shard if self.n_shards > 1 else None)
+                if victim is None:
+                    break
+                census_cold = bool(coldness) and coldness.get(victim, 0.0) > 0
+                if (not census_cold and min_idle_ticks > 0
+                        and self._tick - int(self.touch[victim]) < min_idle_ticks):
+                    break  # everything left was touched too recently
+                table = self.demote(table, victim)
+        return table
+
+    def _free_in_shard(self, shard: int) -> int:
+        if self.n_shards == 1:
+            return len(self.free)
+        return sum(1 for pp in self.free if self.shard_of_frame(pp) == shard)
 
     def reset(self) -> None:
         """The engine rebuilt an empty paged table: every mirror entry,
@@ -265,7 +329,7 @@ class Pager:
             snap["shards"] = [
                 {
                     "resident": int((self.page_map[s * per:(s + 1) * per] >= 0).sum()),
-                    "free": sum(1 for pp in self.free if self.shard_of_frame(pp) == s),
+                    "free": self._free_in_shard(s),
                     "host": sum(1 for lp in self.host_tier if self.shard_of_page(lp) == s),
                 }
                 for s in range(self.n_shards)

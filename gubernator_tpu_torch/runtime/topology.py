@@ -12,7 +12,9 @@ strategy object:
   shards replaces peer forwarding. Paging rides the same seam on both,
   with one frame pool per shard on the mesh.
 - **geometry**: the shard count `n_dev` and the `device` the table
-  lives on; one shard is the single-table engine.
+  lives on; one shard is the single-table engine. `primary_tier` names
+  the table's tier in the census and admission snapshots ("device" or
+  "sharded").
 - **collective step** (`dispatch_guard`, `build_replica`): the guard
   around every dispatch (no lock on one device: parallel/mesh.py
   `collective_guard`), and the GLOBAL replica tier, which is not ported
@@ -50,6 +52,8 @@ class SingleChipTopology:
     kernels, no replica tier, no guard."""
 
     n_dev = 1
+    # the census's name for the tier the table is (engine.table_census)
+    primary_tier = "device"
     thread_name = "gubernator-torch-pump"
 
     def __init__(self, device):
@@ -81,6 +85,7 @@ class IciMeshTopology:
     the page map shared, and the Pager runs one frame pool per shard
     (n_shards = D)."""
 
+    primary_tier = "sharded"
     thread_name = "gubernator-torch-ici"
 
     def __init__(self, devices=None):

@@ -106,9 +106,11 @@ async def serve_get_rate_limits_bytes(svc: V1Service, data: bytes) -> bytes:
     a mixed batch's Gregorian items go through the object path and are
     spliced back in request order. Otherwise the object path serves
     requests built from the native parse. Raises ApiError for whole-call
-    failures: bytes the parse rejects, and a name or key that is not
-    UTF-8, are INVALID_ARGUMENT ("malformed request"), as protobuf's
-    decode error is for the JAX package."""
+    failures: bytes the parse rejects, a name or key that is not UTF-8,
+    and an item metadata map protobuf would refuse (`wire.metadata_ok`,
+    walked only when the parse flagged an item `slow`) are
+    INVALID_ARGUMENT ("malformed request"), as protobuf's decode error is
+    for the JAX package."""
     if fastpath.enabled(svc):
         res = await asyncio.get_running_loop().run_in_executor(
             None, fastpath.try_serve, svc, data
@@ -126,7 +128,7 @@ async def serve_get_rate_limits_bytes(svc: V1Service, data: bytes) -> bytes:
                 other = [RateLimitResp(error=str(e)) for _ in other_reqs]
             return fastpath.merge_mixed(n, local_pos, local_out, other)
     cols = wire.parse_requests(data)
-    if cols is None:
+    if cols is None or (cols.slow.any() and not wire.metadata_ok(data)):
         raise ApiError("malformed request", grpc_code="INVALID_ARGUMENT")
     reqs = []
     for i in range(cols.n):

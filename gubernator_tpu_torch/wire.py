@@ -189,6 +189,110 @@ def parse_requests(data: bytes) -> Optional[RequestColumns]:
     )
 
 
+class _Walk:
+    """Reads protobuf wire fields the way protobuf's decoder does, for
+    `metadata_ok`: a varint of at most ten bytes, tags with field
+    numbers in 1..2^29-1, lengths and fixed widths inside the buffer.
+    Every fault raises ValueError."""
+
+    __slots__ = ("buf", "p", "end")
+
+    def __init__(self, buf: bytes, p: int, end: int):
+        self.buf, self.p, self.end = buf, p, end
+
+    def varint(self) -> int:
+        v = shift = 0
+        while self.p < self.end and shift < 64:
+            b = self.buf[self.p]
+            self.p += 1
+            v |= (b & 0x7F) << shift
+            if not b & 0x80:
+                return v
+            shift += 7
+        raise ValueError("truncated or overlong varint")
+
+    def tag(self):
+        t = self.varint()
+        field, wt = t >> 3, t & 7
+        if field == 0 or field > 536870911:
+            raise ValueError("field number out of range")
+        return field, wt
+
+    def take(self, n: int) -> int:
+        """Skip n bytes; returns where they start."""
+        if n > self.end - self.p:
+            raise ValueError("field runs past its message")
+        start = self.p
+        self.p += n
+        return start
+
+    def skip(self, field: int, wt: int) -> None:
+        """Skip one unknown field's value (a group up to its end tag)."""
+        if wt == 0:
+            self.varint()
+        elif wt == 1:
+            self.take(8)
+        elif wt == 2:
+            self.take(self.varint())
+        elif wt == 5:
+            self.take(4)
+        elif wt == 3:
+            while True:
+                f, w = self.tag()
+                if w == 4:
+                    if f != field:
+                        raise ValueError("mismatched end group")
+                    return
+                self.skip(f, w)
+        else:
+            raise ValueError(f"wire type {wt}")
+
+
+def _check_map_entry(buf: bytes, p: int, end: int) -> None:
+    """One map<string, string> entry (a message: key = 1, value = 2),
+    decoded as protobuf decodes it: string fields must be UTF-8, other
+    fields and wire types are skipped as unknown fields."""
+    m = _Walk(buf, p, end)
+    while m.p < m.end:
+        field, wt = m.tag()
+        if field in (1, 2) and wt == 2:
+            n = m.varint()
+            start = m.take(n)
+            buf[start:start + n].decode("utf-8")  # UnicodeDecodeError is a ValueError
+        elif wt == 4:
+            raise ValueError("end group outside a group")
+        else:
+            m.skip(field, wt)
+
+
+def metadata_ok(data: bytes) -> bool:
+    """Whether protobuf would decode every item's `metadata` (field 9, a
+    map<string, string>) of a GetRateLimitsReq that `parse_requests`
+    accepted: each length-delimited field 9 must hold a well-formed map
+    entry with UTF-8 key and value. The native parse skips field 9 (it
+    only flags the item `slow`), so the object path calls this, in plain
+    Python, on calls that have a `slow` item."""
+    try:
+        r = _Walk(data, 0, len(data))
+        while r.p < r.end:
+            field, wt = r.tag()
+            if field != 1 or wt != 2:
+                r.skip(field, wt)
+                continue
+            n = r.varint()
+            item = _Walk(data, r.take(n), r.p)
+            while item.p < item.end:
+                f, w = item.tag()
+                if f == 9 and w == 2:
+                    ln = item.varint()
+                    _check_map_entry(data, item.take(ln), item.p)
+                else:
+                    item.skip(f, w)
+    except ValueError:
+        return False
+    return True
+
+
 def build_responses(status, limit, remaining, reset_time) -> bytes:
     lib = load()
     n = len(status)

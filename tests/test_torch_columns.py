@@ -69,11 +69,14 @@ def jeng(jax_engine):
 PORT_CONFIGS = {
     "fused": dict(layout="fused"),
     "narrow": dict(layout="narrow"),
-    # 16 logical pages, 8 frames: waves promote and demote
-    "fused-paged": dict(layout="fused", page_groups=16, page_budget=8),
-    "narrow-paged": dict(layout="narrow", page_groups=16, page_budget=8),
+    # 16 logical pages, 8 frames: waves promote and demote (on demand
+    # only: no background demoter, so the pager's moves are deterministic)
+    "fused-paged": dict(layout="fused", page_groups=16, page_budget=8, page_demote_interval_s=0),
+    "narrow-paged": dict(layout="narrow", page_groups=16, page_budget=8,
+                         page_demote_interval_s=0),
     "mesh-fused": dict(layout="fused", mesh=True),
-    "mesh-narrow-paged": dict(layout="narrow", page_groups=16, page_budget=16, mesh=True),
+    "mesh-narrow-paged": dict(layout="narrow", page_groups=16, page_budget=16, mesh=True,
+                              page_demote_interval_s=0),
 }
 
 

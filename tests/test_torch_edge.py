@@ -13,12 +13,11 @@ force-global items, items carrying metadata, empty and oversized calls,
 GUBER_DISABLE_FAST_EDGE read per call; and the adversarial corpora of
 tests/test_fastpath.py (:362-547). Tolerance: none (bytes).
 
-Where the two packages' outcomes differ the difference must be the
-recorded open fault (ROADMAP.md section 3, "F-edge-1"): the native
-parse does not decode a metadata entry (field 9), protobuf does, so
-bytes whose metadata protobuf refuses (a malformed map entry, a string
-that is not UTF-8) are INVALID_ARGUMENT for the JAX package and are
-served by the port's object path. It is asserted, not skipped.
+Bytes whose item metadata (field 9) protobuf refuses (a malformed map
+entry, a key or value that is not UTF-8) are INVALID_ARGUMENT from both
+packages: the port walks field 9 of the calls its native parse flags
+`slow` (`wire.metadata_ok`), which closed F-edge-1 (ROADMAP.md section
+3). No input of the corpora gives different outcomes.
 """
 
 import asyncio
@@ -205,57 +204,29 @@ def test_malformed_bytes_are_invalid_argument(both):
     assert outcome(serve_get_rate_limits_bytes, psvc, ok) == outcome(jserve, jsvc, ok)
 
 
-def _metadata_fault(data: bytes) -> bool:
-    """The recorded fault's signature: the native parse accepts the
-    bytes, protobuf refuses them, and every name and key is UTF-8 (so
-    what protobuf refuses is an item's metadata)."""
-    cols = wire.parse_requests(data)
-    if cols is None:
-        return False
-    try:
-        pb.pb.GetRateLimitsReq.FromString(data)
-        return False
-    except Exception:  # noqa: BLE001 - protobuf's DecodeError
-        pass
-    try:
-        for i in range(cols.n):
-            cols.name_key_parts(i, errors="strict")
-    except UnicodeDecodeError:
-        return False
-    return True
-
-
 @pytest.mark.parametrize("seed", [11, 12, 13, None])
-def test_adversarial_corpora_match_jax_or_the_recorded_fault(both, seed):
+def test_adversarial_corpora_match_jax(both, seed):
     """Every input of the wire-type mutation corpus (seed) or the fixed
-    adversarial corpus (None): the same outcome from both packages, or
-    the recorded fault (JAX INVALID_ARGUMENT, the port serves). After a
-    fault the port's table is set back to the JAX one (only the port
-    committed)."""
+    adversarial corpus (None): the same bytes or the same error from both
+    packages, and the same table after the whole corpus. The inputs whose
+    item metadata protobuf refuses (F-edge-1 in ROADMAP.md, now closed)
+    are INVALID_ARGUMENT from both."""
     jsvc, psvc, _clock = both
     corpus = adversarial_corpus() if seed is None else mutation_corpus(seed)
-    faults = []
+    differ = []
     for k, data in enumerate(corpus):
         a = outcome(jserve, jsvc, data)
         b = outcome(serve_get_rate_limits_bytes, psvc, data)
-        if a == b:
-            continue
-        assert a == ("error", "INVALID_ARGUMENT") and b[0] == "ok", (seed, k, a, b)
-        assert _metadata_fault(data), (seed, k)
-        faults.append(k)
-        psvc.engine.restore(jsvc.engine.snapshot())
-    assert faults == RECORDED_FAULTS[seed]
+        if a != b:
+            differ.append((k, a, b))
+            psvc.engine.restore(jsvc.engine.snapshot())
+    assert differ == RECORDED_FAULTS.get(seed, [])
     assert_snapshots_equal(psvc.engine.snapshot(), jsvc.engine.snapshot())
 
 
 # The inputs of each corpus on which the packages' outcomes differ
-# (ROADMAP.md section 3, F-edge-1).
-RECORDED_FAULTS = {
-    11: [18, 29, 34, 133, 143, 148, 158, 176, 258],
-    12: [10, 12, 13, 22, 114, 159, 209, 229, 264, 265, 270, 290],
-    13: [10, 83, 84, 101, 164, 176, 216, 228, 250, 276],
-    None: [],
-}
+# (ROADMAP.md section 3); none since F-edge-1 was closed.
+RECORDED_FAULTS: dict = {}
 
 
 def _item(inner: bytes) -> bytes:
@@ -268,18 +239,41 @@ BASE_ITEM = (b"\x0a\x01n" + b"\x12\x01k" + b"\x18\x01" + b"\x20\x05" + b"\x28" +
 @pytest.mark.parametrize("metadata", [
     b"\x4a\x01\xff",  # field 9: a map entry that is not a message
     b"\x4a\x07\x0a\x01a\x12\x02\xc3\x28",  # an entry whose value is not UTF-8
+    b"\x4a\x04\x0a\x02\xed\xa0",  # a key that is a lone surrogate
+    b"\x4a\x03\x0a\x05a",  # a key longer than its entry
+    b"\x4a\x02\x00\x00",  # field 0 inside the entry
+    b"\x4a\x02\x0c\x00",  # an end-group tag outside a group
+    b"\x4a\x03\x0a\x01a" + b"\x4a\x01\x08",  # a good entry, then a truncated one
 ])
-def test_recorded_fault_metadata_is_not_decoded(both, metadata):
-    """F-edge-1, pinned: JAX refuses these bytes (protobuf decodes the
-    metadata map and fails), the port serves the item (its native parse
-    skips field 9 and flags the item for the object path)."""
+def test_bad_metadata_is_refused_by_both(both, metadata):
+    """F-edge-1, closed: an item metadata map (field 9) that protobuf
+    refuses is INVALID_ARGUMENT from both packages, and nothing is
+    committed."""
     jsvc, psvc, _clock = both
     data = _item(BASE_ITEM + metadata)
     assert outcome(jserve, jsvc, data) == ("error", "INVALID_ARGUMENT")
-    got = outcome(serve_get_rate_limits_bytes, psvc, data)
-    assert got[0] == "ok"
-    (r,) = pb.pb.GetRateLimitsResp.FromString(got[1]).responses
-    assert (r.limit, r.remaining, r.error) == (5, 4, "")
+    assert outcome(serve_get_rate_limits_bytes, psvc, data) == ("error", "INVALID_ARGUMENT")
+    assert psvc.engine.stats()["requests"] == 0
+    assert not wire.metadata_ok(data)
+
+
+@pytest.mark.parametrize("metadata", [
+    b"\x4a\x08\x0a\x01a\x12\x03\xc3\xa9z",  # UTF-8 key and value
+    b"\x4a\x00",  # an empty entry: key and value ""
+    b"\x4a\x05\x18\x07\x12\x01v",  # an unknown field beside the value
+    b"\x4a\x04\x08\x01\x10\x02",  # key and value with a varint wire type: unknown fields
+    b"\x48\x05",  # field 9 as a varint: an unknown field of the item
+    b"\x4a\x06\x0b\x08\x01\x0c\x0a\x00",  # a group, then an empty key
+])
+def test_good_metadata_is_served_as_jax_serves_it(both, metadata):
+    """Metadata protobuf accepts: both packages serve the item through
+    the object path, with the same bytes."""
+    jsvc, psvc, _clock = both
+    data = _item(BASE_ITEM + metadata)
+    assert wire.metadata_ok(data)
+    want = outcome(jserve, jsvc, data)
+    assert want[0] == "ok"
+    assert outcome(serve_get_rate_limits_bytes, psvc, data) == want
     assert psvc.engine.stats()["columnar_flushes"] == 0  # metadata: object path
 
 

@@ -81,6 +81,8 @@ def test_source_imports_no_jax_or_reference_package(path):
     "gubernator_tpu_torch.service.fastpath",
     "gubernator_tpu_torch.service.server",
     "gubernator_tpu_torch.runtime.engine",
+    "gubernator_tpu_torch.ops.census",
+    "gubernator_tpu_torch.ops.admission",
 ])
 def test_slice_modules_are_checked(module):
     """The narrow layout, the paged table, the pager, the bench, the

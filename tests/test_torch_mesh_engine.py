@@ -15,6 +15,7 @@ import random
 import numpy as np
 import pytest
 
+from gubernator_tpu.runtime.ici_engine import IciEngineConfig as JIciConfig
 from gubernator_tpu_torch.api.types import Behavior, RateLimitReq
 from gubernator_tpu_torch.runtime.engine import DeviceEngine, EngineConfig
 from gubernator_tpu_torch.runtime.ici_engine import IciEngine, IciEngineConfig
@@ -38,6 +39,7 @@ def mesh(clock, layout="fused", paged=False, **kw):
     if paged:
         kw.setdefault("page_groups", PAGE_GROUPS)
         kw.setdefault("page_budget", 16)
+        kw.setdefault("page_demote_interval_s", 0)  # demand demotes only: deterministic
     return IciEngine(
         IciEngineConfig(devices=SHARDS, layout=layout, num_groups=NUM_GROUPS,
                         batch_size=32, batch_wait_s=0.001, **kw),
@@ -178,9 +180,10 @@ def test_global_requests_are_refused():
 
 
 def test_mesh_engine_config_is_checked():
-    """Shards on two cards, a shard count that divides neither the
-    groups nor the page budget, and a background demoter interval are
-    refused."""
+    """Shards on two cards and a shard count that divides neither the
+    groups nor the page budget are refused; the background demoter runs
+    at the JAX package's defaults (every 2 s, one free frame per
+    shard)."""
     clock = Clock()
     with pytest.raises(NotImplementedError, match="several"):
         IciEngine(IciEngineConfig(devices=["cuda:0", "cuda:1"], num_groups=64))
@@ -190,6 +193,10 @@ def test_mesh_engine_config_is_checked():
         mesh(clock, paged=True, page_budget=12)
     with pytest.raises(ValueError, match="logical page count"):
         mesh(clock, paged=True, page_groups=64, page_budget=8)
-    with pytest.raises(NotImplementedError, match="census"):
-        mesh(clock, paged=True, page_demote_interval_s=1.0)
-    assert IciEngineConfig().page_demote_interval_s == 0
+    eng = mesh(clock, paged=True, page_demote_interval_s=1.0)
+    try:
+        assert eng._demote_thread is not None and eng._demote_thread.is_alive()
+    finally:
+        eng.close()
+    assert IciEngineConfig().page_demote_interval_s == JIciConfig().page_demote_interval_s == 2.0
+    assert IciEngineConfig().page_free_target == JIciConfig().page_free_target == 1

@@ -204,18 +204,23 @@ def test_snapshot_carries_across_packages_and_budgets():
 
 
 def test_paging_knobs_are_checked():
-    """page_budget is required with page_groups; a background demoter
-    interval is refused (it waits for the census) rather than ignored;
-    a flat engine reports no paging stats."""
+    """page_budget is required with page_groups; the background demoter
+    runs at the JAX package's defaults (every 2 s, one free frame) and
+    any interval is accepted; a flat engine reports no paging stats."""
     with pytest.raises(ValueError, match="page_budget"):
         DeviceEngine(EngineConfig(device="cpu", num_groups=NUM_GROUPS, page_groups=32))
     with pytest.raises(ValueError, match="exceeds num_groups"):
         DeviceEngine(EngineConfig(device="cpu", num_groups=NUM_GROUPS,
                                   page_groups=512, page_budget=1))
-    with pytest.raises(NotImplementedError, match="census"):
-        DeviceEngine(EngineConfig(device="cpu", num_groups=NUM_GROUPS, page_groups=32,
-                                  page_budget=2, page_demote_interval_s=1.0))
-    assert EngineConfig().page_demote_interval_s == 0
+    eng = DeviceEngine(EngineConfig(device="cpu", num_groups=NUM_GROUPS, page_groups=32,
+                                    page_budget=2, page_demote_interval_s=1.0))
+    try:
+        assert eng._demote_thread is not None and eng._demote_thread.is_alive()
+    finally:
+        eng.close()
+    assert not eng._demote_thread.is_alive()
+    assert EngineConfig().page_demote_interval_s == JConfig().page_demote_interval_s == 2.0
+    assert EngineConfig().page_free_target == JConfig().page_free_target == 1
     eng = DeviceEngine(EngineConfig(device="cpu", num_groups=NUM_GROUPS))
     try:
         assert "promotes" not in eng.stats()

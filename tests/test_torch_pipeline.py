@@ -62,7 +62,8 @@ def engine(depth, layout="fused", page_groups=0, **kw):
     kw.setdefault("batch_size", 64)
     kw.setdefault("batch_wait_s", 0.001)
     kw.setdefault("batch_limit", 50)  # one bulk of `run` per flush
-    pcfg = dict(page_groups=page_groups, page_budget=4) if page_groups else {}
+    pcfg = (dict(page_groups=page_groups, page_budget=4, page_demote_interval_s=0)
+            if page_groups else {})
     return DeviceEngine(
         EngineConfig(num_groups=1 << 10, device="cpu", pipeline_depth=depth, layout=layout,
                      **pcfg, **kw),
