@@ -5,7 +5,8 @@
 Builds the port's native code from the checkout (the CUDA decide-wave
 kernel, four configurations, the decide-scan kernel, four
 configurations at two block sizes, and the sharded decide-wave kernel,
-two configurations, one nvcc per source, all built for sm_90a and
+two configurations, which also serves the GLOBAL replica tier's waves
+(row 5r), one nvcc per source, all built for sm_90a and
 linked into one library, and the key hasher and the wire path with
 g++, every compiler started at once; the build line gives each
 kernel's registers, spills and static shared memory), then drives it
@@ -175,6 +176,50 @@ table of 512 pages of 4,096 groups, every page resident, for both
 layouts, which must leave exactly the flat run's table. Each line is
 printed as a phase line with the scan launches it made.
 
+Then, after the bench, the GLOBAL replica tier on the 1M size's image
+and calls (`parallel/ici.py`; bench.py's replica geometry: 8 replicas
+of 2^20 slots at 4 ways, one per shard):
+
+15. replica_kernel, per layout (kernel row 5r): the sharded kernel over
+   the 8 replicas stacked on the card, each lane's group the pair home *
+   num_rgroups + slot, 32 waves of 4,096 GLOBAL lanes (Zipf(1.1) over
+   500,000 keys, homes uniform, RESET_REMAINING, leaky keys, 5% of the
+   lanes on keys crowding 64 groups so that inserts evict), against its
+   plain version (`sharded_plain` on a second copy, then the same
+   pending bookkeeping): bit-exact on every output, the 9 sums, the
+   stacked table and `pending` after every wave, exactly one launch per
+   wave, evictions and freed slots seen. Then replica_times: the
+   kernel's events and profiler time per wave, the engine's path per
+   wave (kernel and pending ops), device operations per replica wave,
+   the plain version's time and the byte bound as for row 5.
+16. sync_tick (fused): at 8 x 2^20 slots the capped tick (65,536 groups)
+   and the full tick, each first enqueued under torch's sync debug mode
+   "error" and held bit-equal (table, pending, tick, diag) against the
+   same tick of the port on a host copy of the state; then per variant
+   (and the capped tick at 8 x 2^22) device ms per tick (events, the
+   stream held busy, median of 6, each after a fresh traffic step of 32
+   waves) against the 100 ms cadence, host enqueue and wall ms, device
+   operations per tick, the peak memory a tick adds and its byte bound.
+   Then replica_ops at 8 x 2^20: one inject of 4,096 authoritative rows
+   into every replica and the stacked census and admission scans of
+   replica 0 (device ms, device operations, byte bound).
+17. global_main_path: `IciEngine` on 8 shards of the card (the 1M
+   sharded table restored from the main path's image, and the replica
+   tier) per layout, on the main path's calls: (a) every item GLOBAL
+   (`V1Service(force_global=True)`), (b) half of them, so one flush
+   feeds both tiers; each through the object path and over wire bytes
+   at the default max_waves, sync_now() after every 4th call; against
+   a CPU `IciEngine` of the same geometry on the same calls, clock and
+   ticks: answers, sharded snapshot and replica stack equal, the
+   replica kernel launched once per replica wave and the sharded one
+   once per table wave, decisions/s and the calls served columnar.
+18. global_cadence: the same engine (fused) with its sync thread at 100
+   ms on the wall clock, 3 s of (a), two idle cadences, one more
+   sync_now() and close(): every replica equal, no pending left,
+   overflow_keys 0, the thread stopped, and the census and admission
+   snapshots' replica tier equal to the numpy oracles over replica 0;
+   ticks run and the host ms of a sync_now.
+
 Then a summary line with the wall time, the card's name and power limit
 as nvidia-smi prints them, the kernel table line, and the last line
 `{"ok": true, "device": {"platform": "gpu", ...}}`. Any failure raises
@@ -210,7 +255,13 @@ from gubernator_tpu_torch.api.types import RateLimitReq, RateLimitResp  # noqa: 
 from gubernator_tpu_torch.ops import _build, cuda_decide, fused, narrow  # noqa: E402
 from gubernator_tpu_torch.ops.admission import admission_oracle  # noqa: E402
 from gubernator_tpu_torch.ops.census import census_oracle  # noqa: E402
-from gubernator_tpu_torch.ops.kernels import BYTES_PER_SLOT, get_kernels  # noqa: E402
+from gubernator_tpu_torch.ops.inject import INJECT_DTYPES, InjectBatch  # noqa: E402
+from gubernator_tpu_torch.ops.kernels import (  # noqa: E402
+    BYTES_PER_SLOT,
+    get_admission,
+    get_census,
+    get_kernels,
+)
 from gubernator_tpu_torch.ops.layout import (  # noqa: E402
     BATCH_DTYPES,
     SLOT_DTYPES,
@@ -220,6 +271,8 @@ from gubernator_tpu_torch.ops.layout import (  # noqa: E402
     stack_batches,
 )
 from gubernator_tpu_torch.ops.paged import PagedTable  # noqa: E402
+from gubernator_tpu_torch.parallel import ici  # noqa: E402
+from gubernator_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from gubernator_tpu_torch.runtime.engine import DeviceEngine, EngineConfig  # noqa: E402
 from gubernator_tpu_torch.runtime.ici_engine import IciEngine, IciEngineConfig  # noqa: E402
 from gubernator_tpu_torch import wire  # noqa: E402
@@ -584,7 +637,7 @@ def resident_lanes(hb: RequestBatch, size: Size, page_map) -> np.ndarray:
 
 
 def wave_bytes(hb: RequestBatch, layout: str, resident: np.ndarray, paged: bool,
-               hits: int, freed_bytes: int = 1) -> int:
+               hits: int, freed_bytes: int = 1, ways: int = WAYS) -> int:
     """Bytes one wave must move: each active lane's batch columns read
     once (an inactive lane reads only its `active` flag), every output
     written once, per active resident lane its group's probe columns
@@ -592,7 +645,7 @@ def wave_bytes(hb: RequestBatch, layout: str, resident: np.ndarray, paged: bool,
     of the `hits` lanes with a live match (the only lanes that need it),
     and (paged) one page-map word per active lane. Sentinel lanes touch
     no row. `freed` is one byte (bool), or 4 for the sharded wave
-    (int32)."""
+    (int32). `ways` is the table's associativity."""
     lanes = len(hb.active)
     active = hb.active
     n_active = int(np.count_nonzero(active))
@@ -600,13 +653,13 @@ def wave_bytes(hb: RequestBatch, layout: str, resident: np.ndarray, paged: bool,
                 + (lanes - n_active) * np.dtype(BATCH_DTYPES["active"]).itemsize)
     outs = lanes * (1 + 6 * 8 + freed_bytes) + 9 * 8
     probe, rest, store = ROW_BYTES[layout]
-    rows = int(np.count_nonzero(active & resident)) * (WAYS * probe + store) + hits * rest
+    rows = int(np.count_nonzero(active & resident)) * (ways * probe + store) + hits * rest
     pmap = n_active * 4 if paged else 0
     return batch_in + outs + rows + pmap
 
 
-def bound_ms(hb, layout, resident, paged, hits, freed_bytes=1):
-    t_bytes = wave_bytes(hb, layout, resident, paged, hits, freed_bytes) / HBM_BYTES_PER_S * 1e3
+def bound_ms(hb, layout, resident, paged, hits, freed_bytes=1, ways=WAYS):
+    t_bytes = wave_bytes(hb, layout, resident, paged, hits, freed_bytes, ways) / HBM_BYTES_PER_S * 1e3
     t_ops = int(np.count_nonzero(hb.active)) * OPS_PER_LANE / SCALAR_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -2390,12 +2443,722 @@ def phase_demoter(size: Size, reference, card: str):
     return results
 
 
+# ---------------------------------------------------------------------------
+# the GLOBAL replica tier (parallel/ici.py): the sharded kernel over
+# stacked replicas (kernel row 5r), the sync tick, the engine's GLOBAL
+# serving and its cadence
+
+REPLICAS = MESH_SHARDS  # one replica per shard
+# bench.py's replica geometry (:790-804): 2^20 slots per replica at 4
+# ways, waves of 4,096 lanes, Zipf(1.1) over 500,000 keys
+REPLICA_SLOTS = 1 << 20
+REPLICA_BIG = 1 << 22  # the capped tick's second size (bench.py:835-840)
+REPLICA_WAYS = 4
+REPLICA_B = 4096
+REPLICA_WAVES = 32
+REPLICA_KEYS = 500_000
+REPLICA_REPS = 100  # timed replica waves
+SYNC_CAP = 65_536  # IciEngineConfig.max_sync_groups
+TICK_REPS = 6
+# Cycles the stream spins before a timed tick (about 60 ms), longer than
+# the host takes to enqueue the tick's torch ops
+TICK_HOLD_CYCLES = 100_000_000
+GLOBAL_BIT = 2
+SYNC_EVERY = 4  # global_main_path: sync_now() after every 4th call
+CADENCE_S = 3.0
+
+
+# Keys that crowd CROWD_GROUPS replica groups (more keys than ways per
+# group), drawn by CROWD_SHARE of the lanes, so that inserts evict
+CROWD_KEYS = 4096
+CROWD_GROUPS = 64
+CROWD_SHARE = 0.05
+
+
+class _ReplicaKeys:
+    """REPLICA_KEYS keys (hashed key strings) and CROWD_KEYS keys built
+    to share CROWD_GROUPS groups, with per-key parameters (a client
+    keeps a key's algorithm, limit and duration)."""
+
+    def __init__(self, rng, num_rgroups: int):
+        self.zipf = _Zipf(REPLICA_KEYS)
+        hi, lo, _ = key_hash128_batch([f"gl:{i}" for i in range(REPLICA_KEYS + 1)], 1)
+        crowd = np.arange(CROWD_KEYS, dtype=np.int64)
+        self.hi = np.concatenate([hi, rng.integers(1, 1 << 62, CROWD_KEYS)])
+        self.lo = np.concatenate([lo, crowd % CROWD_GROUPS * 7919 % num_rgroups
+                                  + num_rgroups * (crowd + 1)])
+        n = len(self.hi)
+        self.slot = (self.lo.astype(np.uint64) % np.uint64(num_rgroups)).astype(np.int64)
+        self.algo = (rng.random(n) < 0.3).astype(np.int8)
+        self.limit = rng.integers(10, 1001, n)
+        self.duration = rng.integers(1000, 60_001, n)
+        self.num_rgroups = num_rgroups
+
+
+def replica_traffic(rng, keys: _ReplicaKeys, now: int, lanes: int = 0) -> RequestBatch:
+    """One replica wave as the engine builds it: Zipf keys, homes drawn
+    uniformly, the group column the pair home * num_rgroups + slot, a
+    lane whose pair an earlier lane took left inactive (padding), so
+    the active pairs are distinct; 30% leaky keys, 5% RESET_REMAINING
+    (frees), 5% DRAIN_OVER_LIMIT, CROWD_SHARE of the lanes on the
+    crowded groups (evictions), every lane GLOBAL. `lanes`: REPLICA_B
+    when 0."""
+    lanes = lanes or REPLICA_B
+    k = np.where(rng.random(lanes) < CROWD_SHARE,
+                 REPLICA_KEYS + 1 + rng.integers(0, CROWD_KEYS, lanes), keys.zipf.draw(rng, lanes))
+    home = rng.integers(0, REPLICAS, lanes)
+    pair = home * keys.num_rgroups + keys.slot[k]
+    _, first = np.unique(pair, return_index=True)
+    active = np.zeros(lanes, bool)
+    active[first] = True
+    u = rng.random(lanes)
+    b = RequestBatch.zeros(lanes)
+    b.key_hi[:] = keys.hi[k]
+    b.key_lo[:] = keys.lo[k]
+    b.group[:] = pair.astype(np.int32)
+    b.algo[:] = keys.algo[k]
+    b.behavior[:] = GLOBAL_BIT | np.where(u < 0.05, 8, np.where(u < 0.10, 32, 0))
+    b.hits[:] = rng.integers(1, 6, lanes)
+    b.limit[:] = keys.limit[k]
+    b.duration[:] = keys.duration[k]
+    b.rate_num[:] = b.duration
+    b.eff_duration[:] = b.duration
+    b.burst[:] = np.where(b.algo == 1, b.limit, 0)
+    b.created_at[:] = now
+    b.active[:] = active
+    return b
+
+
+def replica_flush(hbs, memo):
+    """One WaveFlush over host waves `hbs` (the engine's launch path:
+    one batch copy, one output allocation)."""
+    lanes = [len(hb.active) for hb in hbs]
+    offs = np.concatenate([[0], np.cumsum(lanes)[:-1]]).tolist()
+    flat = RequestBatch(*(np.concatenate(c) for c in zip(*hbs)))
+    return cuda_decide.WaveFlush(batch_to_device(flat, DEVICE), list(zip(offs, lanes)), memo)
+
+
+def replica_step(state, keys, rng, now, layout, memo):
+    """`waves` replica waves of fresh traffic on `state` through the
+    engine's path (one flush, one launch and the pending ops per wave):
+    the traffic step bench.py runs before each timed tick."""
+    fl = replica_flush([replica_traffic(rng, keys, now) for _ in range(REPLICA_WAVES)], memo)
+    rows = ici.replica_rows(state)
+    for w in range(REPLICA_WAVES):
+        ici.run_replica_wave(state, rows, fl, w, now, layout=layout, ways=REPLICA_WAYS,
+                             num_rgroups=keys.num_rgroups)
+    return fl
+
+
+def _state_diff(a, b) -> list:
+    """Fields of two IciStates that differ, compared on `a`'s device."""
+    pairs = (("table", a.table.data, b.table.data), ("pending", a.pending, b.pending),
+             ("tick", a.tick, b.tick))
+    return [n for n, x, y in pairs if not torch.equal(x, y.to(x.device))]
+
+
+def phase_replica_kernel(rng, layout: str, card: str):
+    """The sharded kernel in the replica geometry (kernel row 5r): D = 8
+    replicas of 2^20 slots at 4 ways stacked on the card as 8 shards,
+    each lane's group the pair home * num_rgroups + slot, against its
+    plain version (`fused.sharded_plain` on a second copy, then the same
+    pending bookkeeping), REPLICA_WAVES waves of REPLICA_B lanes:
+    bit-exact on every output field, the 9 sums, the stacked table and
+    `pending` after every wave, exactly one kernel launch per wave.
+    Then its times (`replica_times`)."""
+    name = cuda_decide.replica_name(layout)
+    mesh = pmesh.make_mesh([DEVICE] * REPLICAS)
+    R = REPLICA_SLOTS // REPLICA_WAYS
+    keys = _ReplicaKeys(rng, R)
+    kst = ici.create_ici_state(mesh, REPLICA_SLOTS, REPLICA_WAYS, layout)
+    pst = ici.create_ici_state(mesh, REPLICA_SLOTS, REPLICA_WAYS, layout)
+    krows, prows = ici.replica_rows(kst), ici.replica_rows(pst)
+    memo = cuda_decide.TableMemo()
+    sync()
+    before = cuda_decide.CONFIG_LAUNCHES[name]
+    err, now = 0.0, NOW
+    counts = dict(evicted=0, freed=0, padding=0)
+    for w in range(REPLICA_WAVES):
+        now += int(rng.choice([0, 1, 250, 2000]))
+        hb = replica_traffic(rng, keys, now)
+        fl = replica_flush([hb], memo)
+        l0 = cuda_decide.CONFIG_LAUNCHES[name]
+        ici.run_replica_wave(kst, krows, fl, 0, now, layout=layout, ways=REPLICA_WAYS,
+                             num_rgroups=R)
+        if cuda_decide.CONFIG_LAUNCHES[name] - l0 != 1:
+            raise AssertionError(f"{name} wave {w}: not exactly one launch")
+        ko, ks = fl.wave_outputs(0, torch.int32)
+        db = fl.wave_batch(0)
+        po, ps = fused.sharded_plain(CODEC[layout], prows, None, db, now, ways=REPLICA_WAYS,
+                                     n_shards=REPLICAS)
+        ici.replica_pending(pst.pending, db, po.slot, po.evicted_hi, po.evicted_lo, po.freed,
+                            num_rgroups=R)
+        sync()
+        err = max(err, _max_abs_err(ko, po, ks, ps))
+        diff = _state_diff(kst, pst)
+        if diff:
+            raise AssertionError(f"{name} wave {w}: {diff} differ from the plain version")
+        counts["evicted"] += int(((ko.evicted_hi != 0) | (ko.evicted_lo != 0)).sum())
+        counts["freed"] += int((ko.freed != 0).sum())
+        counts["padding"] += int((~db.active).sum())
+    launches = cuda_decide.CONFIG_LAUNCHES[name] - before
+    if launches != REPLICA_WAVES:
+        raise AssertionError(f"{name}: {launches} launches for {REPLICA_WAVES} waves")
+    if not (counts["evicted"] and counts["freed"]):
+        raise AssertionError(f"{name}: the traffic made no eviction or no freed slot")
+    res = {"phase": "replica_kernel", "kernel": name, "ok": True, "replicas": REPLICAS,
+           "slots_per_replica": REPLICA_SLOTS, "ways": REPLICA_WAYS, "waves": REPLICA_WAVES,
+           "batch": REPLICA_B, "keys": REPLICA_KEYS,
+           "table_mb": kst.table.data.numel() * 8 / 1e6,
+           "pending_mb": kst.pending.numel() * 8 / 1e6,
+           "live_rows_after": int(((kst.table.data[..., 2] & 1) != 0).sum()),  # META: col 2
+           "pending_nonzero_after": int((kst.pending != 0).sum()), **counts,
+           "launches": launches, "max_abs_err": err, "tolerance": "bit-exact (int64)"}
+    emit(res)
+    del pst, prows
+    free_device()
+    times = replica_times(rng, kst, keys, layout, card)
+    return err, times
+
+
+def replica_times(rng, state, keys, layout: str, card: str) -> dict:
+    """Row 5r's times at REPLICA_B lanes on fresh waves: the kernel's
+    median device time per wave (CUDA events, L2 flushed, the device
+    held busy while the host enqueues, the wave's flush made before the
+    window), its profiler time, the path per wave (the engine's: one
+    wave of a multi-wave WaveFlush, the kernel and the pending ops,
+    events without a hold), the device operations per replica wave
+    (kernel plus pending ops), the plain version's median, and the byte
+    bound as for row 5 (each wave's live matches counted)."""
+    name = cuda_decide.replica_name(layout)
+    R = keys.num_rgroups
+    rows = ici.replica_rows(state)
+    now = NOW + 60_000
+    hbs = [replica_traffic(rng, keys, now) for _ in range(REPLICA_REPS)]
+    dbs = [batch_to_device(hb, DEVICE) for hb in hbs]
+    memo = cuda_decide.TableMemo()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)  # > the H100's 50 MB L2
+    st = {"i": 0}
+    timed = []
+
+    def setup():
+        i = st["i"] % REPLICA_REPS
+        st["i"] += 1
+        return i, cuda_decide.WaveFlush(dbs[i], None, memo)
+
+    def kernel_a(arg):
+        i, fl = arg
+        fl.launch(0, rows, None, now, layout=layout, ways=REPLICA_WAYS, n_shards=REPLICAS,
+                  replica=True)
+        timed.append((i, fl.sums[0, 0]))
+
+    def kernel():
+        kernel_a(setup())
+
+    path_fl = replica_flush(hbs, memo)
+
+    def path():
+        i = st["i"] % REPLICA_REPS
+        st["i"] += 1
+        ici.run_replica_wave(state, rows, path_fl, i, now, layout=layout, ways=REPLICA_WAYS,
+                             num_rgroups=R)
+
+    pt = ici.create_ici_state(pmesh.make_mesh([DEVICE] * REPLICAS), REPLICA_SLOTS,
+                              REPLICA_WAYS, layout)
+    prows = ici.replica_rows(pt)
+
+    def plain():
+        i = st["i"] % REPLICA_REPS
+        st["i"] += 1
+        po, _ = fused.sharded_plain(CODEC[layout], prows, None, dbs[i], now, ways=REPLICA_WAYS,
+                                    n_shards=REPLICAS)
+        ici.replica_pending(pt.pending, dbs[i], po.slot, po.evicted_hi, po.evicted_lo, po.freed,
+                            num_rgroups=R)
+
+    for _ in range(10):
+        kernel()
+    sync()
+    timed.clear()
+    k_ms = _median_ms(kernel_a, REPLICA_REPS, flush, hold_cycles=2_000_000, setup=setup)
+    path_ms = _median_ms(path, REPLICA_REPS, flush)
+    dev_ms = _profiled_device_ms(kernel, REPLICA_REPS, "decide_sharded_kernel")
+    ops = _ops_per_call(path, reps=4)
+    plain()
+    sync()
+    p_ms = _median_ms(plain, 10, flush)
+    hits = torch.stack([h for _, h in timed]).tolist()
+    ones = np.ones(REPLICA_B, bool)
+    bounds = [bound_ms(hbs[i], layout, ones, False, h, 4, ways=REPLICA_WAYS)
+              for (i, _), h in zip(timed, hits)]
+    res = {"phase": "replica_times", "kernel": name, "batch": REPLICA_B,
+           "kernel_ms_median": k_ms, "kernel_device_ms_profiler": dev_ms,
+           "path_ms_median": path_ms, "device_ops_per_replica_wave": ops,
+           "plain_ms_median": p_ms, "bound_ms": statistics.median(b for b, _ in bounds),
+           "bound_by": bounds[0][1], "live_matches_per_wave_median": statistics.median(hits),
+           "active_lanes_per_wave_median": statistics.median(
+               int(np.count_nonzero(hb.active)) for hb in hbs),
+           "reps": REPLICA_REPS, "card": card}
+    emit(res)
+    del flush, pt, prows, dbs
+    return res
+
+
+def _tick_no_sync(sync_fn, state, now):
+    """One tick enqueued with torch's sync debug mode at "error": an
+    operation that waits for the device raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return sync_fn(state, now)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _tick_times(sync_fn, state, keys, rng, layout, memo, now):
+    """(device ms median, host enqueue ms median, wall ms median, device
+    ops per tick, peak device memory the tick adds in GB) over TICK_REPS
+    ticks, each after a fresh traffic step (so the capped tick finds
+    dirty groups), timed with CUDA events around the tick while the
+    stream spins TICK_HOLD_CYCLES first (the window holds device work
+    only)."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    dev, host, wall = [], [], []
+    for r in range(TICK_REPS):
+        replica_step(state, keys, rng, now + r, layout, memo)
+        sync()
+        flush.zero_()
+        torch.cuda._sleep(TICK_HOLD_CYCLES)
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        s.record()
+        sync_fn(state, now + r)
+        e.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        e.synchronize()
+        dev.append(s.elapsed_time(e))
+        replica_step(state, keys, rng, now + r, layout, memo)
+        sync()
+        t0 = time.perf_counter()
+        sync_fn(state, now + r)
+        sync()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    replica_step(state, keys, rng, now, layout, memo)
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sync_fn(state, now)
+    sync()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    replica_step(state, keys, rng, now, layout, memo)
+    sync()
+    ops = _ops_per_call(lambda: sync_fn(state, now), reps=1)
+    del flush
+    return statistics.median(dev), statistics.median(host), statistics.median(wall), ops, peak
+
+
+def _inject_items(rng, keys: _ReplicaKeys, n: int) -> InjectBatch:
+    """`n` authoritative rows on distinct replica groups (an inject wave
+    as `IciEngine.inject_globals` assembles it), host columns."""
+    k = rng.choice(REPLICA_KEYS, n * 2, replace=False) + 1
+    _, first = np.unique(keys.slot[k], return_index=True)
+    k = k[np.sort(first)][:n]
+    b = InjectBatch.zeros(len(k))
+    leaky = keys.algo[k] == 1
+    b.key_hi[:], b.key_lo[:] = keys.hi[k], keys.lo[k]
+    b.group[:] = keys.slot[k].astype(np.int32)
+    b.algo[:] = keys.algo[k]
+    b.limit[:] = keys.limit[k]
+    b.duration[:] = keys.duration[k]
+    b.remaining[:] = np.where(leaky, (keys.limit[k] // 2) << 20, keys.limit[k] // 2)
+    b.stamp[:] = NOW
+    b.expire_at[:] = NOW + keys.duration[k]
+    b.burst[:] = np.where(leaky, keys.limit[k], 0)
+    b.active[:] = True
+    return b
+
+
+def replica_ops_times(rng, state, keys, layout: str, card: str):
+    """The replica tier's other torch-op programs on a live 8 x 2^20
+    state: one inject wave of REPLICA_B authoritative rows into every
+    replica (`make_inject_replicas`), and the stacked census and
+    admission scans of replica 0; device ms (events, L2 flushed, the
+    stream held busy while the host enqueues, median of CENSUS_REPS),
+    device operations per call and the byte bound (inject: the rows'
+    columns, per replica and row the W ways' probe columns, the written
+    row and the pending slot; scans: replica 0's table read once)."""
+    mesh = pmesh.make_mesh([DEVICE] * REPLICAS)
+    slots = state.pending.shape[1]
+    inject = ici.make_inject_replicas(mesh, slots, REPLICA_WAYS, layout)
+    items = [_inject_items(rng, keys, REPLICA_B).to_device(DEVICE) for _ in range(CENSUS_REPS)]
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    st = {"i": 0}
+
+    def one_inject():
+        inject(state, items[st["i"] % len(items)], NOW)
+        st["i"] += 1
+
+    one_inject()
+    sync()
+    inj_ms = _median_ms(one_inject, CENSUS_REPS, flush, hold_cycles=SCAN_HOLD_CYCLES)
+    inj_ops = _ops_per_call(one_inject)
+    probe, _rest, store = ROW_BYTES[layout]
+    item_bytes = sum(np.dtype(dt).itemsize for dt in INJECT_DTYPES.values())
+    inj_bytes = REPLICA_B * item_bytes + REPLICAS * REPLICA_B * (REPLICA_WAYS * probe + store + 8)
+    lines = {"inject": {"device_ms_median": inj_ms, "device_ops_per_call": inj_ops,
+                        "bytes_bound": inj_bytes,
+                        "bound_ms": inj_bytes / HBM_BYTES_PER_S * 1e3, "items": REPLICA_B}}
+    census = get_census(layout, REPLICA_WAYS, stacked=True)
+    admission = get_admission(layout, REPLICA_WAYS, stacked=True)
+    scan_bytes = slots * BYTES_PER_SLOT[layout]
+    for name, fn in (("census_stacked", census), ("admission_stacked", admission)):
+        fn(state.table, NOW)
+        sync()
+        lines[name] = {
+            "device_ms_median": _median_ms(lambda: fn(state.table, NOW), CENSUS_REPS, flush,
+                                           hold_cycles=SCAN_HOLD_CYCLES),
+            "device_ops_per_call": _ops_per_call(lambda: fn(state.table, NOW)),
+            "bytes_bound": scan_bytes, "bound_ms": scan_bytes / HBM_BYTES_PER_S * 1e3}
+    res = {"phase": "replica_ops", "layout": layout, "replicas": REPLICAS,
+           "slots_per_replica": slots, **lines, "bound_by": "bytes", "card": card}
+    emit(res)
+    del flush
+    return res
+
+
+def phase_sync_tick(rng, card: str, layout: str = "fused"):
+    """The sync tick on the card. At 2^20 slots x 8 replicas: after a
+    traffic step, the state is copied to the host and one capped tick
+    (SYNC_CAP groups) runs on the card, its enqueue under torch's sync
+    debug mode "error" (no operation may wait for the device), and the
+    same tick on the host copy through the port's CPU path: stacked
+    table, pending, tick and diag bit-equal; the same for the full tick.
+    Then, per variant (capped and full at 2^20, capped at 2^22), the
+    device ms per tick (median of TICK_REPS, each after a fresh traffic
+    step) against the 100 ms cadence, the host's enqueue ms, the wall
+    ms, the torch device operations per tick, the peak device memory
+    the tick adds, and the byte bound (capped: the stack and pending
+    read once for the fingerprints; full: read and written once)."""
+    cpu_mesh = pmesh.make_mesh(["cpu"] * REPLICAS)
+    mesh = pmesh.make_mesh([DEVICE] * REPLICAS)
+    out = []
+    for slots in (REPLICA_SLOTS, REPLICA_BIG):
+        R = slots // REPLICA_WAYS
+        keys = _ReplicaKeys(rng, R)
+        state = ici.create_ici_state(mesh, slots, REPLICA_WAYS, layout)
+        memo = cuda_decide.TableMemo()
+        now = NOW
+        variants = [("capped", SYNC_CAP)] + ([("full", None)] if slots == REPLICA_SLOTS else [])
+        for vname, cap in variants:
+            tick = ici.make_sync_step(mesh, slots, REPLICA_WAYS, layout, max_sync_groups=cap)
+            check = None
+            if slots == REPLICA_SLOTS:
+                replica_step(state, keys, rng, now, layout, memo)
+                sync()
+                host_state = ici.IciState(*(
+                    type(state.table)(state.table.data.to("cpu", copy=True)),
+                    state.pending.to("cpu", copy=True), state.tick.to("cpu", copy=True)))
+                _st, diag = _tick_no_sync(tick, state, now)
+                d_card = diag.cpu()
+                t0 = time.perf_counter()
+                _hs, d_host = ici.make_sync_step(cpu_mesh, slots, REPLICA_WAYS, layout,
+                                                 max_sync_groups=cap)(host_state, now)
+                host_s = time.perf_counter() - t0
+                diff = _state_diff(state, host_state)
+                if not torch.equal(d_card, d_host):
+                    diff.append("diag")
+                check = {"fields_differing_from_cpu": diff, "diag": d_card.tolist(),
+                         "cpu_tick_s": host_s, "no_host_sync": True}
+                del host_state
+                if diff:
+                    raise AssertionError(f"sync tick {vname}: {diff} differ from the CPU tick")
+            dev_ms, host_ms, wall_ms, ops, peak = _tick_times(tick, state, keys, rng, layout,
+                                                              memo, now + 1000)
+            bpsl = BYTES_PER_SLOT[layout] + 8  # a row and its pending
+            moved = REPLICAS * slots * bpsl * (1 if cap is not None else 2)
+            res = {"phase": "sync_tick", "variant": vname, "layout": layout,
+                   "replicas": REPLICAS, "slots_per_replica": slots, "ways": REPLICA_WAYS,
+                   "max_sync_groups": cap, "groups": R,
+                   "device_ms_median": dev_ms, "enqueue_host_ms_median": host_ms,
+                   "wall_ms_median": wall_ms, "cadence_ms": 100.0,
+                   "within_cadence": dev_ms < 100.0, "device_ops_per_tick": ops,
+                   "peak_added_gb": peak, "bytes_bound": moved,
+                   "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                   "reps": TICK_REPS, "card": card}
+            if check is not None:
+                res.update(check)
+            emit(res)
+            out.append(res)
+        if slots == REPLICA_SLOTS:
+            replica_ops_times(rng, state, keys, layout, card)
+        del state
+        free_device()
+    return out
+
+
+def _global_items(calls, rng):
+    """The main path's calls with half of every call's items GLOBAL."""
+    out = []
+    for items in calls:
+        flags = rng.random(len(items)) < 0.5
+        out.append([dict(kw, behavior=kw["behavior"] | (GLOBAL_BIT if f else 0))
+                    for kw, f in zip(items, flags)])
+    return out
+
+
+def _global_engine(size, layout, device, **kw):
+    cfg = dict(num_groups=size.num_groups, ways=WAYS, batch_size=B, num_slots=REPLICA_SLOTS,
+               replica_ways=REPLICA_WAYS, sync_wait_s=3600.0, layout=layout)
+    cfg.update(kw)
+    return IciEngine(IciEngineConfig(devices=[device] * REPLICAS, **cfg))
+
+
+def _serve_global(eng, calls, clk, path: str, force: bool):
+    """Every call through the object path or over wire bytes, sync_now()
+    after every SYNC_EVERY-th call; returns (answers, seconds, columnar
+    flushes per call)."""
+    svc = V1Service(eng, force_global=force)
+    t, out, columnar = 0.0, [], []
+    for c, items in enumerate(calls):
+        c0 = eng.stats()["columnar_flushes"]
+        t0 = time.perf_counter()
+        if path == "bytes":
+            out.append(asyncio.run(serve_get_rate_limits_bytes(svc, encode_request(items))))
+        else:
+            resp = asyncio.run(svc.get_rate_limits([RateLimitReq(**kw) for kw in items]))
+            out.append([(r.status, r.limit, r.remaining, r.reset_time, r.error) for r in resp])
+        t += time.perf_counter() - t0
+        columnar.append(eng.stats()["columnar_flushes"] - c0)
+        if (c + 1) % SYNC_EVERY == 0:
+            eng.sync_now()
+        clk.advance(700)
+    clk.advance(-700 * len(calls))
+    return out, t, columnar
+
+
+def _replica_wide(eng) -> dict:
+    """The engine's replica stack and pending as host numpy columns (the
+    wide image, so layouts compare), and its tick."""
+    with eng._lock, eng._on_stream():
+        st = eng.ici_state
+        wide = get_kernels(eng.cfg.layout).to_wide(type(st.table)(ici.replica_rows(st)))
+        out = {f: getattr(wide, f).cpu().numpy() for f in SlotTable._fields}
+        out["pending"] = st.pending.cpu().numpy().ravel()
+        out["tick"] = st.tick.cpu().numpy()
+    return out
+
+
+def phase_global_main_path(size: Size, reference, card: str):
+    """GLOBAL serving through the entry points: an IciEngine on 8 shards
+    of the card with the 1M sharded table (restored from the main path's
+    image) and a replica tier of 8 x 2^20 slots at 4 ways, per layout,
+    on the main path's 8 calls of 1,000 Zipf(1.1) items: (a) through
+    V1Service(force_global=True), every item GLOBAL, and (b) half the
+    items GLOBAL, so one flush feeds both tiers; each over the object
+    path and over wire bytes (`serve_get_rate_limits_bytes`, default
+    max_waves), with sync_now() after every 4th call. The reference is a
+    CPU IciEngine of the same geometry on the same calls, clock and
+    ticks: answers, the sharded snapshot (key strings included) and the
+    replica stack (wide), pending and tick equal. Launches counted from
+    0 for each run: the replica kernel once per replica wave, the
+    sharded kernel once per table wave, nothing else."""
+    snap, calls, _want, _csnap = reference
+    traffic = {"a_force_global": (calls, True),
+               "b_half_global": (_global_items(calls, np.random.default_rng(9)), False)}
+    launches_by_layout = {"fused": 0, "narrow": 0}
+    with _clock.freeze(NOW) as clk:
+        for tname, (tcalls, force) in traffic.items():
+            for path in ("object", "bytes"):
+                ceng = _global_engine(size, "fused", "cpu")
+                try:
+                    ceng.restore(snap)
+                    want, csecs, ccol = _serve_global(ceng, tcalls, clk, path, force)
+                    csnap = ceng.snapshot()
+                    crep = _replica_wide(ceng)
+                    cst = ceng.stats()
+                finally:
+                    ceng.close()
+                for layout in ("fused", "narrow"):
+                    sname = cuda_decide.sharded_name(layout)
+                    rname = cuda_decide.replica_name(layout)
+                    geng = _global_engine(size, layout, DEVICE)
+                    try:
+                        geng.restore(snap)
+                        sync()
+                        cuda_decide.reset_launches()
+                        got, secs, col = _serve_global(geng, tcalls, clk, path, force)
+                        launches = dict(cuda_decide.CONFIG_LAUNCHES)
+                        st = geng.stats()
+                        gsnap = geng.snapshot()
+                        grep = _replica_wide(geng)
+                    finally:
+                        geng.close()
+                    if path == "object":
+                        mismatches = sum(a != b for gc, wc in zip(got, want)
+                                         for a, b in zip(gc, wc))
+                        errors = sum(bool(r[4]) for gc in got for r in gc)
+                    else:
+                        mismatches = sum(g != w for g, w in zip(got, want))
+                        errors = None
+                    ticks = int(grep["tick"][0])
+                    snap_diff = _snap_diff(gsnap, csnap)
+                    rep_diff = [f for f in crep if not np.array_equal(grep[f], crep[f])]
+                    del gsnap, grep
+                    decisions = sum(len(c) for c in tcalls)
+                    res = {"phase": "global_main_path", "traffic": tname, "path": path,
+                           "layout": layout, "calls": len(tcalls), "items": decisions,
+                           "global_items": sum(1 for c in tcalls for kw in c
+                                               if force or kw["behavior"] & GLOBAL_BIT),
+                           "flushes": st["flushes"], "columnar_flushes_per_call": col,
+                           "cpu_columnar_flushes_per_call": ccol,
+                           "waves": st["waves"], "replica_waves": st["replica_waves"],
+                           "engine_kernel_launches": st["kernel_launches"],
+                           "replica_launches": launches[rname],
+                           "sharded_launches": launches[sname],
+                           "other_kernel_launches": sum(launches.values()) - launches[rname]
+                           - launches[sname],
+                           "ticks": ticks, "error_responses": errors,
+                           "response_mismatches": mismatches,
+                           "snapshot_columns_differing": snap_diff,
+                           "replica_columns_differing": rep_diff,
+                           "overflow_keys": st["overflow_keys"],
+                           "sync_backlog": st["sync_backlog"],
+                           "decisions_per_s": decisions / secs, "seconds": secs,
+                           "cpu_decisions_per_s": decisions / csecs,
+                           "cpu_overflow_keys": cst["overflow_keys"], "card": card}
+                    emit(res)
+                    if mismatches or snap_diff or rep_diff or errors:
+                        raise AssertionError(f"{rname} {tname} {path}: the card disagrees "
+                                             "with the CPU engine")
+                    if not (launches[rname] == st["replica_waves"] > 0):
+                        raise AssertionError(f"{rname}: replica launches do not match the "
+                                             "replica waves")
+                    if launches[rname] + launches[sname] != st["waves"] or \
+                            res["other_kernel_launches"]:
+                        raise AssertionError(f"{rname}: launches do not match the waves")
+                    if not force and launches[sname] == 0:
+                        raise AssertionError(f"{sname}: the mixed traffic fed no table wave")
+                    launches_by_layout[layout] += launches[rname]
+                    free_device()
+    return launches_by_layout
+
+
+def phase_global_cadence(size: Size, reference, card: str):
+    """The same engine (fused) with its sync thread at the default 100
+    ms, on the wall clock, serving CADENCE_S seconds of the main path's
+    calls with every item GLOBAL; then no traffic for two cadences, one
+    more sync_now() and close(). Checks: every replica holds the same
+    rows (each key hit converged), no pending left, overflow_keys 0, the
+    thread stopped by close(); and the census and admission snapshots'
+    "replica" tier against the numpy oracles over replica 0 copied to
+    the host."""
+    _snap, calls, _want, _csnap = reference
+    eng = _global_engine(size, "fused", DEVICE, sync_wait_s=0.1)
+    host_ms = []
+    real_sync = eng.sync_now
+
+    def timed_sync():
+        t0 = time.perf_counter()
+        real_sync()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+
+    eng.sync_now = timed_sync
+    svc = V1Service(eng, force_global=True)
+    served = errors = 0
+    try:
+        t0 = time.perf_counter()
+        c = 0
+        while time.perf_counter() - t0 < CADENCE_S:
+            items = calls[c % len(calls)]
+            resp = asyncio.run(svc.get_rate_limits([RateLimitReq(**kw) for kw in items]))
+            errors += sum(bool(r.error) for r in resp)
+            served += len(items)
+            c += 1
+        secs = time.perf_counter() - t0
+        time.sleep(2 * eng.cfg.sync_wait_s + 0.05)
+        eng.sync_now()
+        with eng._lock, eng._on_stream():
+            st = eng.ici_state
+            data = st.table.data
+            same = all(bool(torch.equal(data[d], data[0])) for d in range(REPLICAS))
+            pending_left = int((st.pending != 0).sum())
+            ticks = int(st.tick[0])
+    finally:
+        eng.close()
+    stopped = not eng._sync_thread.is_alive()
+    stats = eng.stats()
+    census = eng.table_census(max_age_s=0)
+    admission = eng.admission_snapshot(max_age_s=0)
+    rep = _replica_wide(eng)
+    cfg = eng.cfg
+    rows0 = SlotTable(*(rep[f][:REPLICA_SLOTS] for f in SlotTable._fields))
+    tier = census["tiers"]["replica"]
+    want_c = census_oracle(rows0, tier["now_ms"], ways=REPLICA_WAYS,
+                           heatmap_width=cfg.census_heatmap_width,
+                           thresholds=tuple(cfg.census_thresholds))
+    want_a = admission_oracle(rows0, admission["now_ms"])
+    bad = [k for k, o in _CENSUS_FIELDS if np.asarray(tier[k]).tolist() != np.asarray(want_c[o]).tolist()]
+    atier = admission["tiers"]["replica"]
+    bad += [k for k, o in _ADMISSION_FIELDS
+            if np.asarray(atier[k]).tolist() != np.asarray(want_a[o]).tolist()]
+    res = {"phase": "global_cadence", "layout": "fused", "seconds": secs, "items": served,
+           "decisions_per_s": served / secs, "sync_wait_s": cfg.sync_wait_s,
+           "ticks": ticks, "sync_now_calls": len(host_ms),
+           "sync_now_host_ms_median": statistics.median(host_ms) if host_ms else None,
+           "sync_now_host_ms_max": max(host_ms) if host_ms else None,
+           "sync_backlog": stats["sync_backlog"], "overflow_keys": stats["overflow_keys"],
+           "overflow_drops": stats["overflow_drops"], "full_ticks": stats["full_ticks"],
+           "error_responses": errors, "replicas_equal": same, "pending_left": pending_left,
+           "thread_stopped": stopped,
+           "replica_live": tier["live"], "replica_admission_keys": atier["keys"],
+           "replica_fields_differing": bad, "card": card}
+    emit(res)
+    if errors or not (same and pending_left == 0 and stopped and stats["overflow_keys"] == 0):
+        raise AssertionError("global_cadence: the replicas did not converge, or the thread ran on")
+    if ticks < int(CADENCE_S / cfg.sync_wait_s) // 2:
+        raise AssertionError(f"global_cadence: only {ticks} ticks in {CADENCE_S} s")
+    if bad:
+        raise AssertionError("global_cadence: the replica tier's snapshots disagree with the oracles")
+    return res
+
+
+def run_global(rng, size: Size, reference, card: str):
+    """The GLOBAL replica tier's phases. Returns {replica kernel name:
+    (max err, times line)} and {layout: launches on the main path}."""
+    kernels = {}
+    for layout in ("fused", "narrow"):
+        kernels[cuda_decide.replica_name(layout)] = phase_replica_kernel(rng, layout, card)
+        free_device()
+    phase_sync_tick(rng, card)
+    launches = phase_global_main_path(size, reference, card)
+    phase_global_cadence(size, reference, card)
+    return kernels, launches
+
+
+def replica_entry(name, layout, err, times, launches):
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "gubernator_tpu_torch/csrc/decide_sharded.cu",
+        "replaces": "gubernator_tpu/ops/pallas_decide.py:927 (raw_decide_flat as "
+                    f"gubernator_tpu/parallel/ici.py:146 make_replica_decide composes it, "
+                    f"layout={layout})",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": times["kernel_ms_median"],
+        "plain_ms": times["plain_ms_median"],
+        "bound_ms": times["bound_ms"],
+        "bound_by": times["bound_by"],
+        "library_ms": None,
+    }
+
+
 def run_size(rng, size: Size, card: str):
     """Kernel checks and times for each wave, scan and sharded
     configuration of the size, then its main path and its mesh main
     path. Returns ({wave kernel name: (kernel, times, main) lines}, {scan
     kernel name: (max err, times line)}, {sharded kernel name: (max err,
-    times line)}, {(sharded kernel name, size): mesh main path line})."""
+    times line)}, {(sharded kernel name, size): mesh main path line},
+    and on the flat size its main path's reference (the image, calls
+    and CPU answers, for the GLOBAL phases), else None)."""
     image = live_image(rng, size)
     pm = scrambled_page_map(rng, size) if size.page_groups else None
     checked, scans, meshes = {}, {}, {}
@@ -2428,9 +3191,10 @@ def run_size(rng, size: Size, card: str):
     phase_pipeline(size, reference)
     if size.page_groups:
         phase_demoter(size, reference, card)
+    keep = None if size.page_groups else reference
     del reference
     return ({k: (err, times, main[k]) for k, (err, times) in checked.items()}, scans,
-            meshes, mesh_main)
+            meshes, mesh_main, keep)
 
 
 def team_vs_scan(size, layout, paged, times, stimes, card) -> None:
@@ -2525,7 +3289,9 @@ def main() -> int:
     entries, scans = [], []
     mesh_errs, mesh_times, mesh_launches = {}, {}, {}
     for size in SIZES:
-        done, scanned, meshed, mesh_main = run_size(rng, size, smi)
+        done, scanned, meshed, mesh_main, reference = run_size(rng, size, smi)
+        if reference is not None:
+            flat, flat_reference = size, reference
         for layout, paged in size.configs:
             k = cuda_decide.config_name(layout, paged)
             entries.append(kernel_entry(k, layout, paged, *done[k]))
@@ -2539,10 +3305,17 @@ def main() -> int:
     launches = phase_bench(smi)
     for e in scans:
         e["launches"] = launches[e["name"]]
+    # the GLOBAL replica tier last, on the flat size's calls: its
+    # profiler sessions come after every exact count of the phases above
+    replicas, replica_launches = run_global(rng, flat, flat_reference, smi)
+    del flat_reference
     entries += scans
     entries += [mesh_entry(cuda_decide.sharded_name(lay), lay, mesh_errs[cuda_decide.sharded_name(lay)],
                            mesh_times[cuda_decide.sharded_name(lay)],
                            mesh_launches[cuda_decide.sharded_name(lay)])
+                for lay in ("fused", "narrow")]
+    entries += [replica_entry(cuda_decide.replica_name(lay), lay,
+                              *replicas[cuda_decide.replica_name(lay)], replica_launches[lay])
                 for lay in ("fused", "narrow")]
     emit({"phase": "summary", "wall_s": time.perf_counter() - t0,
           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,

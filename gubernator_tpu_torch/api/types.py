@@ -78,6 +78,19 @@ class RateLimitResp:
 
 
 @dataclass
+class UpdatePeerGlobal:
+    """Owner-to-replica state push for one GLOBAL key (reference
+    peers.proto:52-72): what `IciEngine.inject_globals` lands on every
+    replica."""
+
+    key: str = ""
+    status: RateLimitResp = field(default_factory=RateLimitResp)
+    algorithm: int = Algorithm.TOKEN_BUCKET
+    duration: int = 0
+    created_at: int = 0
+
+
+@dataclass
 class HealthCheckResp:
     """Service health (reference gubernator.proto:206-213)."""
 

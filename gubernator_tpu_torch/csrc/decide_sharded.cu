@@ -12,6 +12,14 @@
 // ops/fused.py::sharded_plain (the masked wave per shard, then the
 // sum); the wrapper is ops/cuda_decide.py::decide_sharded.
 //
+// The same kernel, unchanged, also replaces raw_decide_flat where the
+// GLOBAL replica tier composes it (gubernator_tpu/parallel/ici.py
+// make_replica_decide, each device's replica decide psum'd over the
+// replicas): parallel/ici.py stacks the D replicas as D shards of
+// num_rgroups groups and sets each lane's group to home * num_rgroups +
+// slot, so shard_lane sends the lane to its home's replica at its slot
+// and store_lane_sharded writes what that psum gives.
+//
 // Bound. The same bytes as one flat wave (decide_wave.cu), with freed
 // stored as int32: ~0.6 MB at B = 1024, ~0.2 us at the H100 SXM's 3.35
 // TB/s (NVIDIA data sheet, not a measurement). Like the flat wave it is

@@ -80,15 +80,18 @@ def _admission_wide(wide, now: int, *, n_buckets: int) -> AdmissionOutput:
 
 
 @functools.lru_cache(maxsize=None)
-def make_admission(layout: str, ways: int, n_buckets: int = ADMISSION_BUCKETS):
+def make_admission(layout: str, ways: int, n_buckets: int = ADMISSION_BUCKETS,
+                   stacked: bool = False):
     """The admission scan of `layout`: (table, now) -> AdmissionOutput,
     on the table's device and the current stream, without changing the
     table or waiting for the device. `ways` keys the cache, as in the
-    JAX package's `make_admission`; the replica-tier variant
-    (`stacked=True`) comes with the GLOBAL replica tier."""
+    JAX package's `make_admission`; `stacked=True` scans replica 0 of a
+    replica tier's (D, N, C) rows, as `make_census` does."""
     to_wide = get_kernels(layout).to_wide
 
     def admission(table, now) -> AdmissionOutput:
+        if stacked:
+            table = type(table)(table.data[0])
         return _admission_wide(to_wide(table), now, n_buckets=n_buckets)
 
     return admission

@@ -147,15 +147,20 @@ def make_census(
     heatmap_width: int = DEFAULT_HEATMAP_WIDTH,
     thresholds: tuple = DEFAULT_THRESHOLDS,
     n_buckets: int = CENSUS_BUCKETS,
+    stacked: bool = False,
 ):
     """The census scan of `layout`: (table, now) -> CensusOutput, on the
     table's device and the current stream, without changing the table or
-    waiting for the device. The JAX package's replica-tier variant
-    (`stacked=True`) comes with the GLOBAL replica tier."""
+    waiting for the device. `stacked=True` is the replica tier's variant
+    (parallel/ici.py): the table's rows carry a leading replica axis,
+    (D, N, C), and the scan reads replica 0 (after a sync tick the
+    replicas mirror each other)."""
     to_wide = get_kernels(layout).to_wide
     thresholds = tuple(int(k) for k in thresholds)
 
     def census(table, now) -> CensusOutput:
+        if stacked:
+            table = type(table)(table.data[0])
         return _census_wide(
             to_wide(table), now, ways=ways, heatmap_width=heatmap_width,
             thresholds=thresholds, n_buckets=n_buckets,

@@ -40,7 +40,9 @@ decide never changes the page map. `CONFIG_LAUNCHES` counts each
 configuration's kernel launches, bumped only right after a launch
 succeeded, so a caller can show that a run went through the kernel;
 `thread_launches()` is the total over every configuration for the
-calling thread alone.
+calling thread alone. The GLOBAL replica tier's waves (parallel/ici.py)
+are sharded launches over the stacked replicas, counted apart under
+`replica_name`.
 """
 
 from __future__ import annotations
@@ -81,10 +83,20 @@ def sharded_name(layout: str) -> str:
     return "decide_wave_sharded" + ("_narrow" if layout == "narrow" else "")
 
 
+def replica_name(layout: str) -> str:
+    """Name under which the sharded kernel counts its launches in the
+    replica geometry of the GLOBAL tier (parallel/ici.py): D stacked
+    replicas as D shards, each lane's group column the pair home *
+    num_rgroups + slot. "decide_wave_replica" (fused) or
+    "decide_wave_replica_narrow"."""
+    return "decide_wave_replica" + ("_narrow" if layout == "narrow" else "")
+
+
 CONFIGS = tuple(
     config_name(lay, p, sc) for sc in (False, True) for p in (False, True)
     for lay in _LAYOUT_CODE
-) + tuple(sharded_name(lay) for lay in _LAYOUT_CODE)
+) + tuple(sharded_name(lay) for lay in _LAYOUT_CODE) + tuple(
+    replica_name(lay) for lay in _LAYOUT_CODE)
 
 # Kernel launches made by this module since import (or the last reset),
 # by configuration.
@@ -529,11 +541,13 @@ class WaveFlush:
         return out, WaveScan(*(row[k] for k in range(4, N_SCAL)))
 
     def launch(self, w: int, data, page_map, now: int, *, layout: str, ways: int,
-               gpp: int = 0, n_shards: int = 0) -> None:
+               gpp: int = 0, n_shards: int = 0, replica: bool = False) -> None:
         """Wave w over the rows `data` (the layout's table; a paged
         table's frames with its `page_map`), in place, into the flush's
         outputs: the wave kernel, or with `n_shards` the sharded kernel
-        over that many shards. CPU rows: the plain version."""
+        over that many shards. With `replica` the sharded launch counts
+        as a replica wave of the GLOBAL tier (`replica_name`): the same
+        kernel over stacked replicas. CPU rows: the plain version."""
         if data.device != self.device:
             raise ValueError(f"the table is on {data.device}, the flush on {self.device}")
         off, b = self.spans[w]
@@ -553,7 +567,7 @@ class WaveFlush:
         paged = int(page_map is not None)
         args = self.args(w, data, page_map, now, ways=ways, gpp=gpp, n_shards=n_shards)
         if n_shards:
-            name = sharded_name(layout)
+            name = replica_name(layout) if replica else sharded_name(layout)
             rc = lib.guber_decide_sharded(ctypes.byref(args), _LAYOUT_CODE[layout], paged,
                                           self._stream)
         else:

@@ -9,7 +9,8 @@ launch of the scan kernel on a CUDA table. Snapshots are exchanged in the wide f
 (to_wide/from_wide), the same format the JAX package uses.
 `get_paged_kernels` puts either layout behind a page map (ops/paged.py);
 `get_census` and `get_admission` give the layout's table scans
-(ops/census.py, ops/admission.py).
+(ops/census.py, ops/admission.py); `inject` writes authoritative rows
+(ops/inject.py; the paged layouts' inject comes with the store path).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 from gubernator_tpu_torch.ops import cuda_decide, fused, narrow
+from gubernator_tpu_torch.ops.inject import inject_rows
 
 # The layouts this package serves; EngineConfig.layout validates against it.
 LAYOUTS = ("fused", "narrow")
@@ -37,6 +39,10 @@ class Kernels(NamedTuple):
     to_wide: object  # table -> SlotTable on the table's device
     from_wide: object  # (SlotTable, device) -> table
     gather_rows: object  # (table, slots) -> SlotTable rows (slot == N reads zeros)
+    # (table, InjectBatch on the table's device, now, ways) -> (table,
+    # evicted_hi, evicted_lo): authoritative rows written in place
+    # (ops/inject.py)
+    inject: object
 
 
 def _make(layout: str, module, table_cls, gather_rows) -> Kernels:
@@ -50,6 +56,9 @@ def _make(layout: str, module, table_cls, gather_rows) -> Kernels:
         flush.launch(w, table.data, None, now, layout=layout, ways=ways)
         return table
 
+    def inject(table, items, now, ways):
+        return (table, *inject_rows(cuda_decide.CODECS[layout], table.data, items, now, ways))
+
     return Kernels(
         layout=layout,
         create=table_cls.create,
@@ -60,6 +69,7 @@ def _make(layout: str, module, table_cls, gather_rows) -> Kernels:
         to_wide=module.unpack_table,
         from_wide=module.pack_table,
         gather_rows=gather_rows,
+        inject=inject,
     )
 
 

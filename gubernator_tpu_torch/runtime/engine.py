@@ -58,11 +58,21 @@ with live rows. A demote's copy to the host waits for every wave queued
 on the stream, tickets in flight included: it stays correct and
 serializes the pipeline.
 
+GLOBAL replica tier (IciEngine; runtime/topology.py `ReplicaTier`,
+parallel/ici.py): a GLOBAL item's key re-hashes into the replica
+keyspace, its home is the next value of a round-robin cursor shared by
+both paths, and its waves assemble per (home, slot) pair. A flush runs
+its table waves first, then its replica waves (one launch of the
+sharded kernel each over the stacked replicas, then the pending
+bookkeeping), under the same lock, on the same stream; the flush's
+counts sum over both tiers.
+
 Observatories (JAX `table_census`, `admission_snapshot`): one census or
 admission scan (ops/census.py, ops/admission.py) per TTL, enqueued on
 the engine's stream under the table lock and read back after the lock
 is released, behind one event. A paged table's physical frames are
-scanned on the device and its host tier with the numpy oracles.
+scanned on the device and its host tier with the numpy oracles; a
+replica tier's replica 0 is the "replica" tier of both snapshots.
 
 Thread model: callers on any thread enqueue; one pump thread assembles
 and launches; the completion thread (depth >= 2) reads the decisions
@@ -245,9 +255,11 @@ class _FlushTicket:
 
     __slots__ = (
         "items",       # [(req, future-like)]: the flush's intake
-        "placements",  # per item: (wave, lane), or None (resolved or carried)
-        "flush",       # cuda_decide.WaveFlush: the outputs and their read-back
-        "waves",       # wave count
+        "placements",  # per item: (tier, wave, lane), tier "s" (the table) or
+                       # "r" (the replica tier); None if resolved or carried
+        "flush",       # cuda_decide.WaveFlush of the table's waves, or None
+        "rflush",      # the replica tier's WaveFlush, or None
+        "waves",       # wave count (both tiers)
         "launches",    # kernel launches made by the waves
     )
 
@@ -311,9 +323,15 @@ class MeshEngine:
             self.K, self._pager = self.topo.build_kernels(cfg)
             self.K.load(self.device)
             self.table = self.K.create(cfg.num_groups, cfg.ways, self.device)
+            # the GLOBAL replica tier (runtime/topology.py ReplicaTier): a
+            # mesh topology's, None on one table
+            self._rtier = self.topo.build_replica(cfg)
         self._memo = cuda_decide.TableMemo()
-        # the GLOBAL replica tier: None on every topology until it is ported
-        self._rtier = self.topo.build_replica(cfg)
+        # Round-robin home cursor of GLOBAL lanes (the replica answering a
+        # lane: the node the request arrived at), shared by the object
+        # path and check_columns.
+        self._home_rr = 0
+        self._rr_lock = threading.Lock()
         # The observatories' scans (one per TTL) and their caches.
         self._census_thresholds = tuple(int(k) for k in cfg.census_thresholds)
         self._census = get_census(
@@ -334,7 +352,8 @@ class MeshEngine:
         self._key_strings: Dict[Tuple[int, int], str] = {}
         self._stats_lock = threading.Lock()
         self._stats = dict(
-            flushes=0, columnar_flushes=0, waves=0, kernel_launches=0, requests=0,
+            flushes=0, columnar_flushes=0, waves=0, replica_waves=0, kernel_launches=0,
+            requests=0,
             cache_hits=0, cache_misses=0, unexpired_evictions=0, over_limit=0,
             inflight_max=0,
         )
@@ -466,7 +485,8 @@ class MeshEngine:
 
     def stats(self) -> dict:
         """Counters: flushes (object path), columnar_flushes
-        (`check_columns`), waves, kernel_launches, requests, the decide
+        (`check_columns`), waves (of both tiers), replica_waves (the
+        GLOBAL replica tier's), kernel_launches, requests, the decide
         metrics (cache hits/misses, unexpired evictions, over-limit
         answers), inflight_max (the most flushes in flight at once: from
         the end of a flush's dispatch to the end of its completion) and
@@ -528,8 +548,10 @@ class MeshEngine:
         cfg = self.cfg
         now = self.now_fn()
         host_pages = pages_snap = None
+        rt = self._rtier
         with self._lock, self.topo.dispatch_guard(), self._on_stream():
             pending = _read_back(self._census(self._census_view(self.table), now))
+            r_pending = _read_back(rt.census(rt.state.table, now)) if rt is not None else None
             if self._pager is not None:
                 # host rows blocks are replaced, never changed in place
                 host_pages = self._pager.host_tier_copy()
@@ -540,6 +562,14 @@ class MeshEngine:
         )
         primary = self.topo.primary_tier
         tiers = {primary: self._census_tier(pending(), now, dev_groups)}
+        if r_pending is not None:
+            # the GLOBAL replica tier: replica 0 (post-sync mirrors)
+            tiers["replica"] = _census_tier_snapshot(
+                r_pending(), now=now, layout=cfg.layout, groups=rt.num_rgroups,
+                ways=rt.replica_ways, bytes_per_slot=BYTES_PER_SLOT[cfg.layout],
+                thresholds=self._census_thresholds,
+                heatmap_width=int(cfg.census_heatmap_width),
+            )
         if self._pager is not None:
             tiers["host"] = self._census_host_tier(host_pages, now)
         snap = _census_combine(tiers, primary=primary)
@@ -628,11 +658,15 @@ class MeshEngine:
         demoted key's window still counts)."""
         now = self.now_fn()
         host_pages = None
+        rt = self._rtier
         with self._lock, self.topo.dispatch_guard(), self._on_stream():
             pending = _read_back(self._admission(self._census_view(self.table), now))
+            r_pending = _read_back(rt.admission(rt.state.table, now)) if rt is not None else None
             if self._pager is not None:
                 host_pages = self._pager.host_tier_copy()
         tiers = {self.topo.primary_tier: _admission_tier_dict(pending())}
+        if r_pending is not None:
+            tiers["replica"] = _admission_tier_dict(r_pending())
         if self._pager is not None:
             tiers["host"] = self._admission_host_tier(host_pages, now)
         snap = _admission_combine(tiers)
@@ -921,7 +955,15 @@ class MeshEngine:
         launch its waves, with their read-back queued and nothing waited
         for. Returns (carry, ticket); `_complete` resolves the ticket.
         The ticket is None when no wave was made (every item resolved by
-        an encode error)."""
+        an encode error).
+
+        With a replica tier (IciEngine), a GLOBAL item goes to the
+        replicas (JAX `engine.py` `_dispatch`): its key re-hashed into
+        the replica keyspace (slot = key_lo mod num_rgroups), its home
+        the round-robin cursor, its waves assembled per (home, slot)
+        pair, whose value home * num_rgroups + slot is the lane's group
+        column (`parallel/ici.py`). The cursor advances only for an item
+        that was placed, as JAX's does."""
         now = self.now_fn()
         cfg = self.cfg
         hi_a, lo_a, grp_a = key_hash128_batch(
@@ -929,77 +971,90 @@ class MeshEngine:
         )
         hi_l, lo_l, grp_l = hi_a.tolist(), lo_a.tolist(), grp_a.tolist()
         self._maybe_prune_key_strings()
+        rt = self._rtier
+        glob = int(Behavior.GLOBAL) if rt is not None else 0
+        if glob:
+            n_rg = rt.num_rgroups
+            slot_l = (lo_a.astype(np.uint64) % np.uint64(n_rg)).astype(np.int64).tolist()
 
         asm = _WaveAssembler(RequestBatch.zeros, cfg.batch_size)
-        placements: List[Optional[Tuple[int, int]]] = []
-        wave_rows: List[list] = []  # per-wave (req, hi, lo, grp) for encode_rows
-        wave_lanes: List[list] = []
+        r_asm = _WaveAssembler(RequestBatch.zeros, cfg.batch_size)
+        placements: List[Optional[Tuple[str, int, int]]] = []
+        # per tier and wave: (req, hi, lo, group) rows for encode_rows
+        rows = {"s": ([], []), "r": ([], [])}
         greg = int(Behavior.DURATION_IS_GREGORIAN)
         carry: List[Tuple[RateLimitReq, object]] = []
         new_strings: Dict[Tuple[int, int], str] = {}
-        for i, (req, fut) in enumerate(items):
-            hi, lo, grp = hi_l[i], lo_l[i], grp_l[i]
-            new_strings[(hi, lo)] = req.hash_key()
-            placed = asm.place(grp, cfg.max_waves)
-            if placed is None:
-                carry.append((req, fut))
-                placements.append(None)
-                continue
-            wb, w, lane = placed
-            if req.behavior & greg:
-                # calendar resolution stays per-item (rare path)
-                try:
-                    encode_one(wb, lane, req, now, cfg.num_groups, key=(hi, lo))
-                except EncodeError as e:
-                    fut.set_result(RateLimitResp(error=str(e)))
+        with self._rr_lock if glob else contextlib.nullcontext():
+            for i, (req, fut) in enumerate(items):
+                hi, lo = hi_l[i], lo_l[i]
+                new_strings[(hi, lo)] = req.hash_key()
+                if req.behavior & glob:
+                    tier, a = "r", r_asm
+                    home = self._home_rr % self.topo.n_dev
+                    place_key = (home, slot_l[i])
+                    grp = home * n_rg + slot_l[i]
+                else:
+                    tier, a = "s", asm
+                    place_key = grp = grp_l[i]
+                placed = a.place(place_key, cfg.max_waves)
+                if placed is None:
+                    carry.append((req, fut))
                     placements.append(None)
                     continue
-            else:
-                while len(wave_rows) < len(asm.waves):
-                    wave_rows.append([])
-                    wave_lanes.append([])
-                wave_rows[w].append((req, hi, lo, grp))
-                wave_lanes[w].append(lane)
-            asm.commit(w, grp)
-            placements.append((w, lane))
+                if tier == "r":
+                    self._home_rr += 1
+                wb, w, lane = placed
+                if req.behavior & greg:
+                    # calendar resolution stays per-item (rare path)
+                    try:
+                        encode_one(wb, lane, req, now, cfg.num_groups, key=(hi, lo))
+                    except EncodeError as e:
+                        fut.set_result(RateLimitResp(error=str(e)))
+                        placements.append(None)
+                        continue
+                    wb.group[lane] = grp
+                else:
+                    wave_rows, wave_lanes = rows[tier]
+                    while len(wave_rows) < len(a.waves):
+                        wave_rows.append([])
+                        wave_lanes.append([])
+                    wave_rows[w].append((req, hi, lo, grp))
+                    wave_lanes[w].append(lane)
+                a.commit(w, place_key)
+                placements.append((tier, w, lane))
 
         with self._keys_lock:
             self._key_strings.update(new_strings)
-        for w, rows in enumerate(wave_rows):
-            if rows:
-                encode_rows(asm.waves[w], wave_lanes[w], rows, now)
-        # A wave made for an item that then failed to encode may be left
-        # empty; only the last wave can be (later items would fill it).
-        n_waves = len(asm.waves)
-        while n_waves and asm.fill(n_waves - 1) == 0:
-            n_waves -= 1
-        if n_waves == 0:
+        hbs = {}
+        for tier, a in (("s", asm), ("r", r_asm)):
+            for w, wrows in enumerate(rows[tier][0]):
+                if wrows:
+                    encode_rows(a.waves[w], rows[tier][1][w], wrows, now)
+            hbs[tier] = _flush_batch(a)
+        (hb, spans), (rhb, rspans) = hbs["s"], hbs["r"]
+        if not spans and not rspans:
             return carry, None
-        # every wave at its own width (its occupied lanes, a prefix),
-        # one after another in one host batch
-        fills = [asm.fill(w) for w in range(n_waves)]
-        offsets = np.concatenate([[0], np.cumsum(fills)[:-1]]).tolist()
-        hb = RequestBatch(*(
-            np.concatenate([c[:f] for c, f in zip(cols, fills)])
-            for cols in zip(*asm.waves[:n_waves])
-        ))
-        flush, launches = self._execute_waves(hb, list(zip(offsets, fills)), now)
+        flush, rflush, launches = self._execute_waves(hb, spans, now, rhb, rspans)
         return carry, _FlushTicket(
-            items=items, placements=placements, flush=flush, waves=n_waves,
-            launches=launches,
+            items=items, placements=placements, flush=flush, rflush=rflush,
+            waves=len(spans) + len(rspans), launches=launches,
         )
 
     def _complete(self, t: _FlushTicket) -> None:
-        """Pipeline stage 2: wait for the ticket's read-back (its event
-        on a card), count the flush, resolve its futures."""
-        host = t.flush.host()
+        """Pipeline stage 2: wait for the ticket's read-back (its events
+        on a card), count the flush over both tiers, resolve its
+        futures."""
+        hosts = {"s": t.flush.host() if t.flush is not None else [],
+                 "r": t.rflush.host() if t.rflush is not None else []}
         served = sum(p is not None for p in t.placements)
-        self._count_flush("flushes", host, t.waves, t.launches, served)
+        self._count_flush("flushes", hosts["s"] + hosts["r"], t.waves, t.launches, served,
+                          len(hosts["r"]))
         for (_req, fut), place in zip(t.items, t.placements):
             if place is None:
                 continue  # resolved (encode error) or carried
-            st, rem, rst, lim = host[place[0]][:4]
-            lane = place[1]
+            tier, w, lane = place
+            st, rem, rst, lim = hosts[tier][w][:4]
             fut.set_result(RateLimitResp(
                 status=int(st[lane]),
                 limit=int(lim[lane]),
@@ -1007,12 +1062,14 @@ class MeshEngine:
                 reset_time=int(rst[lane]),
             ))
 
-    def _count_flush(self, kind: str, host, waves: int, launches: int, served: int) -> None:
+    def _count_flush(self, kind: str, host, waves: int, launches: int, served: int,
+                     replica_waves: int = 0) -> None:
         hits, misses, evictions, over = _wave_totals(host)
         with self._stats_lock:
             s = self._stats
             s[kind] += 1
             s["waves"] += waves
+            s["replica_waves"] += replica_waves
             s["kernel_launches"] += launches
             s["requests"] += served
             s["cache_hits"] += hits
@@ -1020,20 +1077,35 @@ class MeshEngine:
             s["unexpired_evictions"] += evictions
             s["over_limit"] += over
 
-    def _execute_waves(self, hb: RequestBatch, spans, now: int):
+    def _execute_waves(self, hb: Optional[RequestBatch], spans, now: int,
+                       rhb: Optional[RequestBatch] = None, rspans=()):
         """Run decide over a flush's scatter-disjoint waves, in order,
         under the table lock, on the engine's stream: `hb` holds every
         wave's lanes on the host, wave w the span `spans[w] = (offset,
         width)` of each column. The batch goes to the device in one copy;
         each wave writes its span of the flush's outputs
         (`cuda_decide.WaveFlush`), whose read-back is queued behind the
-        last wave. Returns (flush, kernel launches). If a wave fails after
-        earlier waves committed, raises TableCommittedError so no caller
-        retries the batch."""
+        last wave. The replica tier's waves (`rhb`, `rspans`: group
+        column of pairs) run after the table's, in a flush of their own
+        over the tier's table memo, as JAX runs them after the sharded
+        waves. Returns (flush or None, replica flush or None, kernel
+        launches).
+
+        If a wave fails after earlier waves of the table committed,
+        raises TableCommittedError so no caller retries the batch. A
+        failure in a replica wave recreates the replica tier empty (its
+        pending may no longer match its table; JAX rebuilds its donated
+        state): the replica hits are lost, as on the JAX engine, and only
+        the table's committed waves make the error TableCommittedError."""
         pager = self._pager
+        rt = self._rtier
         launches = 0
+        flush = rflush = None
         with self._lock, self.topo.dispatch_guard(), self._on_stream():
-            flush = cuda_decide.WaveFlush(batch_to_device(hb, self.device), spans, self._memo)
+            if spans:
+                flush = cuda_decide.WaveFlush(batch_to_device(hb, self.device), spans, self._memo)
+            if rspans:
+                rflush = cuda_decide.WaveFlush(batch_to_device(rhb, self.device), rspans, rt.memo)
             done = 0
             try:
                 for w, (off, width) in enumerate(spans):
@@ -1053,8 +1125,20 @@ class MeshEngine:
                 if done:
                     raise TableCommittedError(str(e)) from e
                 raise
-            flush.read_back()
-        return flush, launches
+            try:
+                for w in range(len(rspans)):
+                    before = cuda_decide.thread_launches()
+                    rt.run_wave(rflush, w, now)
+                    launches += cuda_decide.thread_launches() - before
+            except Exception as e:
+                rt.recreate_state()
+                if done:
+                    raise TableCommittedError(str(e)) from e
+                raise
+            for f in (flush, rflush):
+                if f is not None:
+                    f.read_back()
+        return flush, rflush, launches
 
     # -- the columnar path (the serving edge, service/fastpath.py) -------------
 
@@ -1071,6 +1155,12 @@ class MeshEngine:
         The caller guarantees: no DURATION_IS_GREGORIAN items, no GLOBAL
         bit unless the engine routes GLOBAL internally, no per-item
         metadata, and validation already done (service/fastpath.py).
+
+        With a replica tier (IciEngine) the batch splits as JAX's
+        `_check_columns_replica_split` splits it: the non-GLOBAL items
+        go to the table's waves, the GLOBAL ones to replica waves, their
+        homes the round-robin cursor's next values (taken once the table
+        waves fit), their waves assembled per (home, slot) pair.
 
         `select` serves a SUBSET of the batch (the Gregorian lane split of
         the edge), with `hashes` = (hi, lo, grp) over the FULL batch.
@@ -1097,10 +1187,36 @@ class MeshEngine:
             hi, lo, grp = hi[select], lo[select], grp[select]
             cols = _select_columns(cols, select)
             sel_map = select
-        asm = _assemble_column_waves(cols, hi, lo, grp, now, cfg.batch_size, cfg.max_waves)
-        if asm is None:
-            return None
-        wb, _wave, _lane, ix, W, B = asm
+        tiers = []  # ("s" or "r", the items' positions (a slice: all), assembly)
+        g_mask = None
+        if self._rtier is not None:
+            g_mask = (cols.behavior & int(Behavior.GLOBAL)) != 0
+            if not g_mask.any():
+                g_mask = None
+        if g_mask is None:
+            asm = _assemble_column_waves(cols, hi, lo, grp, now, cfg.batch_size, cfg.max_waves)
+            if asm is None:
+                return None
+            tiers.append(("s", slice(None), asm))
+        else:
+            ng, g = np.nonzero(~g_mask)[0], np.nonzero(g_mask)[0]
+            if len(ng):
+                asm = _assemble_column_waves(_select_columns(cols, ng), hi[ng], lo[ng], grp[ng],
+                                             now, cfg.batch_size, cfg.max_waves)
+                if asm is None:
+                    return None
+                tiers.append(("s", ng, asm))
+            n_rg = self._rtier.num_rgroups
+            slot = (lo[g].astype(np.uint64) % np.uint64(n_rg)).astype(np.int64)
+            with self._rr_lock:
+                rr0 = self._home_rr
+                self._home_rr += len(g)
+            homes = (rr0 + np.arange(len(g))) % self.topo.n_dev
+            asm = _assemble_column_waves(_select_columns(cols, g), hi[g], lo[g],
+                                         homes * n_rg + slot, now, cfg.batch_size, cfg.max_waves)
+            if asm is None:
+                return None
+            tiers.append(("r", g, asm))
 
         keys_l = list(zip(hi.tolist(), lo.tolist()))
         with self._keys_lock:
@@ -1114,12 +1230,24 @@ class MeshEngine:
                 self._key_strings.update(decoded)
             self._maybe_prune_key_strings()
 
-        flat = RequestBatch(*(c.reshape(-1) for c in wb))
-        flush, launches = self._execute_waves(flat, [(w * B, B) for w in range(W)], now)
-        host = flush.host()
-        self._count_flush("columnar_flushes", host, W, launches, cols.n)
-        status, limit, remaining, reset_time = _stack_wave_outputs(host)
-        return status[ix], limit[ix], remaining[ix], reset_time[ix]
+        batches = {"s": (None, []), "r": (None, [])}
+        for tier, _pos, (wb, _wave, _lane, _ix, W, B) in tiers:
+            batches[tier] = (RequestBatch(*(c.reshape(-1) for c in wb)),
+                             [(w * B, B) for w in range(W)])
+        (hb, spans), (rhb, rspans) = batches["s"], batches["r"]
+        flush, rflush, launches = self._execute_waves(hb, spans, now, rhb, rspans)
+        hosts = {"s": flush.host() if flush is not None else [],
+                 "r": rflush.host() if rflush is not None else []}
+        self._count_flush("columnar_flushes", hosts["s"] + hosts["r"], len(spans) + len(rspans),
+                          launches, cols.n, len(rspans))
+        out = None
+        for tier, pos, asm in tiers:
+            stacked = _stack_wave_outputs(hosts[tier])
+            if out is None:
+                out = [np.zeros(cols.n, dtype=x.dtype) for x in stacked]
+            for o, x in zip(out, stacked):
+                o[pos] = x[asm[3]]
+        return tuple(out)
 
     def _maybe_prune_key_strings(self) -> None:
         """Bound host memory: when the hash->string dictionary exceeds
@@ -1443,6 +1571,26 @@ def _assemble_column_waves(cols, hi, lo, grp, now: int, batch_size: int, max_wav
     wb.created_at[ix] = created
     wb.active[ix] = True
     return wb, wave, lane, ix, W, B
+
+
+def _flush_batch(asm: _WaveAssembler):
+    """An assembler's waves as one host batch, every wave at its own
+    width (its occupied lanes, a prefix) one after another, and their
+    (offset, width) spans; (None, []) when no wave holds a lane. A wave
+    made for an item that then failed to encode may be left empty; only
+    the last wave can be (later items would fill it)."""
+    n_waves = len(asm.waves)
+    while n_waves and asm.fill(n_waves - 1) == 0:
+        n_waves -= 1
+    if n_waves == 0:
+        return None, []
+    fills = [asm.fill(w) for w in range(n_waves)]
+    offsets = np.concatenate([[0], np.cumsum(fills)[:-1]]).tolist()
+    hb = RequestBatch(*(
+        np.concatenate([c[:f] for c, f in zip(cols, fills)])
+        for cols in zip(*asm.waves[:n_waves])
+    ))
+    return hb, list(zip(offsets, fills))
 
 
 def _stack_wave_outputs(host):

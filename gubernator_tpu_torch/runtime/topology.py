@@ -17,9 +17,8 @@ strategy object:
   "sharded").
 - **collective step** (`dispatch_guard`, `build_replica`): the guard
   around every dispatch (no lock on one device: parallel/mesh.py
-  `collective_guard`), and the GLOBAL replica tier, which is not ported
-  yet: `build_replica` returns None on both topologies, and IciEngine
-  refuses GLOBAL requests while it does.
+  `collective_guard`), and the GLOBAL replica tier (`ReplicaTier`,
+  parallel/ici.py), built only where a mesh exists to replicate over.
 
 This module imports ops/, parallel/ and runtime/pager, never
 runtime/engine (the engine imports it).
@@ -31,9 +30,102 @@ import contextlib
 
 import torch
 
-from gubernator_tpu_torch.ops.kernels import get_kernels, get_paged_kernels
+from gubernator_tpu_torch.ops import cuda_decide
+from gubernator_tpu_torch.ops.kernels import (
+    get_admission,
+    get_census,
+    get_kernels,
+    get_paged_kernels,
+)
+from gubernator_tpu_torch.parallel import ici
 from gubernator_tpu_torch.parallel import mesh as pmesh
 from gubernator_tpu_torch.runtime.pager import Pager
+
+
+class ReplicaTier:
+    """The GLOBAL replica tier, bundled for the engine core: per-shard
+    replica tables with pending deltas (parallel/ici.py), the decide,
+    sync and inject over them, and the stacked census and admission
+    scans. The core treats it as state plus callables; the sync cadence
+    (thread and tick bookkeeping) stays in IciEngine.
+
+    `run_wave(flush, w, now)` runs wave w of a `cuda_decide.WaveFlush`
+    made with `memo` (the tier's own table memo: the engine's waves
+    alternate between two tables) as one replica wave: one launch of the
+    sharded kernel over the stacked replicas on a card, then the pending
+    bookkeeping. `run_sync(sync, now)` ticks the state with `sync` (the
+    regular tick or the backstop's) and returns the diag; while no wave
+    or inject has touched the state since it was created (every row
+    zero), the tick only advances its counter, which is all the merge
+    would change."""
+
+    def __init__(self, mesh, cfg, census_thresholds):
+        self.mesh = mesh
+        self._layout = cfg.layout
+        self.num_slots = int(cfg.num_slots)
+        self.replica_ways = int(cfg.replica_ways)
+        self.num_rgroups = self.num_slots // self.replica_ways
+        self.memo = cuda_decide.TableMemo()
+        self.recreate_state()
+        self.decide = ici.make_replica_decide(
+            mesh, self.num_slots, self.replica_ways, layout=cfg.layout)
+        self.sync = ici.make_sync_step(
+            mesh, self.num_slots, self.replica_ways, layout=cfg.layout,
+            max_sync_groups=cfg.max_sync_groups,
+        )
+        # Collision backstop: an unbounded tick every `full_tick_every`
+        # capped ticks, built only when the regular tick is capped.
+        self.sync_full = None
+        if (cfg.max_sync_groups is not None and cfg.max_sync_groups < self.num_rgroups
+                and cfg.full_tick_every > 0):
+            self.sync_full = ici.make_sync_step(
+                mesh, self.num_slots, self.replica_ways, layout=cfg.layout,
+                max_sync_groups=None,
+            )
+        self._inject = ici.make_inject_replicas(
+            mesh, self.num_slots, self.replica_ways, layout=cfg.layout)
+        # replica 0 of the stack (after a sync the replicas mirror it)
+        self.census = get_census(
+            cfg.layout, self.replica_ways, heatmap_width=int(cfg.census_heatmap_width),
+            thresholds=census_thresholds, stacked=True,
+        )
+        self.admission = get_admission(cfg.layout, self.replica_ways, stacked=True)
+
+    def recreate_state(self) -> ici.IciState:
+        """Fresh empty replicas (after a failed replica wave: counter
+        loss on failure, as the JAX engine rebuilds its donated state)."""
+        self._state = ici.create_ici_state(
+            self.mesh, self.num_slots, self.replica_ways, layout=self._layout)
+        self._rows = ici.replica_rows(self._state)
+        self._untouched = True
+        return self._state
+
+    @property
+    def state(self) -> ici.IciState:
+        return self._state
+
+    @state.setter
+    def state(self, state: ici.IciState) -> None:
+        self._state = state
+        self._rows = ici.replica_rows(state)
+        self._untouched = False
+
+    def inject(self, items, now: int) -> None:
+        """Authoritative rows (an InjectBatch on the state's device) into
+        every replica."""
+        self._untouched = False
+        self._inject(self._state, items, now)
+
+    def run_sync(self, sync, now: int):
+        self._state, diag = sync(self._state, now, untouched=self._untouched)
+        return diag
+
+    def run_wave(self, flush, w: int, now: int) -> None:
+        self._untouched = False
+        ici.run_replica_wave(
+            self._state, self._rows, flush, w, now, layout=self._layout,
+            ways=self.replica_ways, num_rgroups=self.num_rgroups,
+        )
 
 
 def _check_paging(cfg) -> int:
@@ -80,7 +172,8 @@ class SingleChipTopology:
 
 class IciMeshTopology:
     """Mesh shape ``(D,)``: the slot table shards over D shards
-    (owner-sharded decide, parallel/mesh.py), all on one device. Paging
+    (owner-sharded decide, parallel/mesh.py), all on one device, and
+    GLOBAL traffic runs on per-shard replicas (parallel/ici.py). Paging
     composes: the paged mesh facade keeps the physical frames sharded and
     the page map shared, and the Pager runs one frame pool per shard
     (n_shards = D)."""
@@ -105,8 +198,7 @@ class IciMeshTopology:
         return K, (Pager(K, n_shards=self.n_dev) if pg > 0 else None)
 
     def build_replica(self, cfg):
-        """The GLOBAL replica tier (parallel/ici.py) is the next slice."""
-        return None
+        return ReplicaTier(self.mesh, cfg, tuple(int(k) for k in cfg.census_thresholds))
 
     def dispatch_guard(self):
         return pmesh.collective_guard()

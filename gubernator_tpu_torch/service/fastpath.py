@@ -20,8 +20,10 @@ Fallback triggers (try_serve returns None):
   the Gregorian items for the object path (`"mixed"`, spliced back by
   `merge_mixed`);
 - the engine declines (wave or lane bounds), or raises before any wave
-  committed (a GLOBAL column on IciEngine, whose replica tier is not
-  ported, raises there as it does on the object path).
+  committed.
+
+GLOBAL items on IciEngine keep their bit and go to its replica tier
+through `check_columns`, as on the object path.
 
 TableCommittedError is re-raised, never turned into a fallback: a
 silent fallback would apply the committed hits twice.
@@ -73,7 +75,8 @@ def try_serve(svc, data: bytes):
 
     GLOBAL items: a standalone node owns every key, so they are decided
     on the local table; the bit is stripped for an engine that does not
-    route GLOBAL internally (as the object path leaves it to the engine).
+    route GLOBAL internally (as the object path leaves it to the engine)
+    and kept for IciEngine, whose replica tier answers them.
     """
     cols = wire.parse_requests(data)
     if cols is None or cols.n == 0 or cols.n > MAX_BATCH_SIZE:
@@ -104,8 +107,8 @@ def try_serve(svc, data: bytes):
         except TableCommittedError:
             raise
         except Exception:
-            # the object path serves (or refuses) the whole call; no wave
-            # committed (TableCommittedError above otherwise)
+            # the object path serves the whole call; no wave committed
+            # (TableCommittedError above otherwise)
             return None
         if out is None:
             return None

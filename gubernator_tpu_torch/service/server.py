@@ -4,10 +4,11 @@ The port of `gubernator_tpu/service/server.py` (`V1Service`, the
 reference's V1Instance, gubernator.go:45-773) for a standalone node:
 every key is owned locally, so a call's valid items go to the engine as
 ONE bulk submission. The engine is either a `DeviceEngine` (one table)
-or an `IciEngine` (the owner-sharded mesh, runtime/ici_engine.py), which
-refuses GLOBAL requests until the replica tier is ported. Peers, GLOBAL
-replication, leases and the decision recorder come in later slices; the
-network listeners too, so callers use this class in process.
+or an `IciEngine` (the owner-sharded mesh, runtime/ici_engine.py), whose
+replica tier answers GLOBAL requests (the flag reaches it unstripped).
+Peers, the cross-node GLOBAL legs, leases and the decision recorder come
+in later slices; the network listeners too, so callers use this class in
+process.
 
 `serve_get_rate_limits_bytes` is the grpc-free serving core of
 V1/GetRateLimits over wire bytes (the JAX package's

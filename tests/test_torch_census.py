@@ -29,8 +29,6 @@ from gubernator_tpu.ops.census import make_census as jmake_census
 from gubernator_tpu.ops.kernels import get_raw_kernels
 from gubernator_tpu.runtime.engine import DeviceEngine as JEngine
 from gubernator_tpu.runtime.engine import EngineConfig as JConfig
-from gubernator_tpu.runtime.engine import _admission_combine as jadmission_combine
-from gubernator_tpu.runtime.engine import _census_combine as jcensus_combine
 from gubernator_tpu.runtime.ici_engine import IciEngine as JIciEngine
 from gubernator_tpu.runtime.ici_engine import IciEngineConfig as JIciConfig
 from gubernator_tpu_torch.api.types import RateLimitReq
@@ -322,12 +320,6 @@ def _engines(clock, mesh, layout, paged_table):
             JEngine(JConfig(**kw), now_fn=clock))
 
 
-def _without_replica(snap, combine, **kw):
-    tiers = {k: v for k, v in snap["tiers"].items() if k != "replica"}
-    extra = {k: snap[k] for k in ("churn", "pages", "now_ms") if k in snap}
-    return dict(combine(tiers, **kw), **extra)
-
-
 def _without_wall_clock(snap):
     snap = dict(snap)
     snap["churn"] = {k: v for k, v in snap["churn"].items() if k not in WALL_CLOCK}
@@ -358,10 +350,10 @@ def test_engine_snapshots_match_jax(mesh, layout, paged_table):
             pc, jc = peng.table_census(max_age_s=0), jeng.table_census(max_age_s=0)
             pa, ja = peng.admission_snapshot(max_age_s=0), jeng.admission_snapshot(max_age_s=0)
             if mesh:
-                # the JAX mesh engine's GLOBAL replica tier, which the port
-                # does not have yet: the other tiers, combined without it
-                jc = _without_replica(jc, jcensus_combine, primary="sharded")
-                ja = _without_replica(ja, jadmission_combine)
+                # both mesh engines carry the GLOBAL replica tier (empty
+                # here: these calls have no GLOBAL item)
+                assert pc["tiers"]["replica"] == jc["tiers"]["replica"]
+                assert pa["tiers"]["replica"] == ja["tiers"]["replica"]
             assert _without_wall_clock(pc) == _without_wall_clock(jc)
             assert pa == ja
         if paged_table:

@@ -267,21 +267,44 @@ def test_bounds_decline_without_committing():
 
 
 def test_mesh_refuses_global_columns():
-    """A GLOBAL column on IciEngine gets the object path's answer: the
-    replica tier is not ported, so it raises before any wave."""
+    """A GLOBAL column on IciEngine is no longer refused: check_columns
+    splits the batch between the sharded waves and the replica tier,
+    as the JAX IciEngine's `_check_columns_replica_split` does. The
+    whole batch, then its non-GLOBAL lane alone (`select`, the edge's
+    Gregorian split), then its GLOBAL lane alone: equal answers, replica
+    stack and sharded table."""
+    from gubernator_tpu.runtime.ici_engine import IciEngine as JIciEngine
+    from gubernator_tpu.runtime.ici_engine import IciEngineConfig as JIciConfig
+
     clock = Clock()
-    eng = port_engine(clock, mesh=True)
+    eng = port_engine(clock, mesh=True, sync_wait_s=3600)
+    jeng = JIciEngine(JIciConfig(num_groups=NUM_GROUPS, batch_size=BATCH, batch_wait_s=0.001,
+                                 sync_wait_s=3600), now_fn=clock)
     try:
         reqs = [JReq(name="g", unique_key="a", hits=1, limit=5, duration=1000),
                 JReq(name="g", unique_key="b", hits=1, limit=5, duration=1000,
                      behavior=Behavior.GLOBAL)]
-        cols = wire.parse_requests(to_bytes(reqs))
-        with pytest.raises(NotImplementedError, match="replica tier"):
-            eng.check_columns(cols)
-        # the non-GLOBAL lane alone is served
+        data = to_bytes(reqs)
+        cols, jcols = wire.parse_requests(data), jwire.parse_requests(data)
         hashes = key_hash128_batch_raw(cols.key_data.tobytes(), cols.key_offsets, NUM_GROUPS)
-        out = eng.check_columns(cols, select=np.array([0]), hashes=hashes)
-        assert int(out[2][0]) == 4
-        assert eng.stats()["requests"] == 1
+        jhashes = jnative.hash128_batch_raw(jcols.key_data.tobytes(), jcols.key_offsets,
+                                            NUM_GROUPS)
+        got = [eng.check_columns(cols)]
+        want = [jeng.check_columns(jcols)]
+        for sel in (np.array([0]), np.array([1])):
+            got.append(eng.check_columns(cols, select=sel, hashes=hashes))
+            want.append(jeng.check_columns(jcols, select=sel, hashes=jhashes))
+        for g, w in zip(got, want):
+            assert [np.asarray(x, np.int64).tolist() for x in g] == \
+                [np.asarray(x, np.int64).tolist() for x in w]
+        assert [int(g[2][-1]) for g in got] == [4, 3, 4]  # b answered on homes 0 then 1
+        assert eng.stats()["requests"] == 4 and eng.stats()["columnar_flushes"] == 3
+        assert np.array_equal(eng.ici_state.table.data.numpy(), np.asarray(jeng.ici_state.table.data))
+        assert np.array_equal(eng.ici_state.pending.numpy(), np.asarray(jeng.ici_state.pending))
+        ps, js = eng.snapshot(), jeng.snapshot()
+        for f in js:
+            if f != "key_strings":  # JAX's replica split records no key strings
+                assert np.array_equal(ps[f], js[f]), f
     finally:
         eng.close()
+        jeng.close()

@@ -279,28 +279,45 @@ def test_good_metadata_is_served_as_jax_serves_it(both, metadata):
 
 def test_mesh_edge_serves_columnar_and_refuses_global(jax_service):
     """IciEngine (8 CPU shards) behind the edge: a non-GLOBAL call is
-    served columnar with the JAX edge's bytes; a call with a GLOBAL item
-    falls back to the object path, which refuses it (the replica tier is
-    not ported), and nothing is committed."""
+    served columnar with the JAX edge's bytes (its DeviceEngine's), and
+    a call with a GLOBAL item, no longer refused, is served columnar too:
+    the GLOBAL item by the replica tier, with the bytes, replica stack
+    and sharded table of the JAX IciEngine behind its fast edge."""
+    from gubernator_tpu.runtime.ici_engine import IciEngine as JIciEngine
+    from gubernator_tpu.runtime.ici_engine import IciEngineConfig as JIciConfig
+
     jsvc, clock, empty = jax_service
     jsvc.engine.restore(empty)
     clock.ms = NOW
-    eng = IciEngine(IciEngineConfig(devices=["cpu"] * 8, num_groups=NUM_GROUPS,
-                                    batch_size=BATCH, batch_wait_s=0.001), now_fn=clock)
+    cfg = dict(num_groups=NUM_GROUPS, batch_size=BATCH, batch_wait_s=0.001, sync_wait_s=3600)
+    eng = IciEngine(IciEngineConfig(devices=["cpu"] * 8, **cfg), now_fn=clock)
     psvc = V1Service(eng, now_fn=clock)
+    jmesh = JIciEngine(JIciConfig(**cfg), now_fn=clock)
+    jmsvc = JService(jmesh, now_fn=clock)
+    jmsvc.fast_edge = True
     try:
         rng = random.Random(4)
         reqs = [r for r in random_call(rng, 30)
                 if not r.behavior & 6 and not r.metadata and r.name and r.unique_key]
         data = to_bytes(reqs)
-        assert outcome(serve_get_rate_limits_bytes, psvc, data) == outcome(jserve, jsvc, data)
+        want = outcome(jserve, jsvc, data)
+        assert outcome(serve_get_rate_limits_bytes, psvc, data) == want
         assert eng.stats()["columnar_flushes"] == 1
+        assert_snapshots_equal(eng.snapshot(), jsvc.engine.snapshot())
+        assert outcome(jserve, jmsvc, data) == want
         before = eng.stats()["requests"]
         g = to_bytes([JReq(name="g", unique_key="a", hits=1, limit=5, duration=1000),
                       JReq(name="g", unique_key="b", hits=1, limit=5, duration=1000,
                            behavior=2)])
-        assert outcome(serve_get_rate_limits_bytes, psvc, g) == ("raised", "NotImplementedError")
-        assert eng.stats()["requests"] == before
-        assert_snapshots_equal(eng.snapshot(), jsvc.engine.snapshot())
+        got = outcome(serve_get_rate_limits_bytes, psvc, g)
+        assert got[0] == "ok" and got == outcome(jserve, jmsvc, g)
+        assert eng.stats()["requests"] == before + 2 and eng.stats()["columnar_flushes"] == 2
+        assert np.array_equal(eng.ici_state.table.data.numpy(), np.asarray(jmesh.ici_state.table.data))
+        assert np.array_equal(eng.ici_state.pending.numpy(), np.asarray(jmesh.ici_state.pending))
+        ps, js = eng.snapshot(), jmesh.snapshot()
+        for f in js:
+            if f != "key_strings":  # JAX's replica split records no key strings
+                assert np.array_equal(ps[f], js[f]), f
     finally:
         eng.close()
+        jmesh.close()

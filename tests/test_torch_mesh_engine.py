@@ -160,23 +160,42 @@ def test_handover_flat_single_to_paged_mesh_and_back():
 
 
 def test_global_requests_are_refused():
-    """GLOBAL traffic belongs to the replica tier, which is not ported:
-    submission raises instead of answering from the sharded table."""
+    """GLOBAL traffic is no longer refused: the replica tier answers it
+    (parallel/ici.py). Each submission route the refusal once covered
+    (check_async, a check_batch mixing a sharded and a GLOBAL item,
+    V1Service) answers as the JAX IciEngine does on the same requests
+    and clock, and leaves the same replica stack and sharded table."""
+    from gubernator_tpu.api.types import RateLimitReq as JReq
+    from gubernator_tpu.runtime.ici_engine import IciEngine as JIciEngine
+    from gubernator_tpu.service.server import V1Service as JService
+
     clock = Clock()
-    eng = mesh(clock)
+    eng = mesh(clock, sync_wait_s=3600)
+    jeng = JIciEngine(JIciConfig(num_groups=NUM_GROUPS, batch_size=32, batch_wait_s=0.001,
+                                 sync_wait_s=3600), now_fn=clock)
     try:
         assert IciEngine.routes_global_internally and not DeviceEngine.routes_global_internally
-        g = RateLimitReq(name="g", unique_key="k", hits=1, limit=5, duration=1000,
-                         behavior=int(Behavior.GLOBAL))
-        with pytest.raises(NotImplementedError, match="replica tier"):
-            eng.check_async(g)
-        with pytest.raises(NotImplementedError, match="replica tier"):
-            eng.check_batch([RateLimitReq(name="g", unique_key="x", hits=1), g])
-        with pytest.raises(NotImplementedError, match="replica tier"):
-            asyncio.run(V1Service(eng, now_fn=clock).get_rate_limits([g]))
-        assert eng.stats()["requests"] == 0
+        g = dict(name="g", unique_key="k", hits=1, limit=5, duration=1000,
+                 behavior=int(Behavior.GLOBAL))
+        x = dict(name="g", unique_key="x", hits=1)
+        got = [eng.check_async(RateLimitReq(**g)).result(timeout=30)]
+        want = [jeng.check_async(JReq(**g)).result(timeout=30)]
+        got += eng.check_batch([RateLimitReq(**x), RateLimitReq(**g)])
+        want += jeng.check_batch([JReq(**x), JReq(**g)])
+        got += asyncio.run(V1Service(eng, now_fn=clock).get_rate_limits([RateLimitReq(**g)]))
+        want += asyncio.run(JService(jeng, now_fn=clock).get_rate_limits([JReq(**g)]))
+        assert [_resp_tuple(r) for r in got] == [_resp_tuple(r) for r in want]
+        # three GLOBAL hits on homes 0, 1, 2 (round robin), no tick yet:
+        # each replica saw one
+        assert not any(r.error for r in got) and [r.remaining for r in got] == [4, 0, 4, 4]
+        assert eng.stats()["requests"] == 4
+        for a, r in ((eng.ici_state.table.data, jeng.ici_state.table.data),
+                     (eng.ici_state.pending, jeng.ici_state.pending)):
+            assert np.array_equal(a.numpy(), np.asarray(r))
+        assert_snapshots_equal(jeng.snapshot(), eng.snapshot())
     finally:
         eng.close()
+        jeng.close()
 
 
 def test_mesh_engine_config_is_checked():

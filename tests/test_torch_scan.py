@@ -262,8 +262,9 @@ def test_stacked_batch_to_device_and_checks():
         K.decide_scan(t, db, torch.from_numpy(nows).to(torch.int32), WAYS)
     assert {"decide_scan", "decide_scan_narrow", "decide_scan_paged",
             "decide_scan_narrow_paged"} <= set(cuda_decide.CONFIG_LAUNCHES)
-    # four wave, four scan and the two sharded-wave configurations
-    assert len(cuda_decide.CONFIGS) == 10
+    # four wave, four scan and the two sharded-wave configurations, and
+    # the sharded kernel's two replica-wave counts (the GLOBAL tier)
+    assert len(cuda_decide.CONFIGS) == 12
 
 
 # ---------------------------------------------------------------------------
