@@ -220,6 +220,45 @@ of 2^20 slots at 4 ways, one per shard):
    snapshots' replica tier equal to the numpy oracles over replica 0;
    ticks run and the host ms of a sync_now.
 
+The Store and Loader seams (store/store.py, the engine's per-wave store
+path), after the GLOBAL phases, on each size's main-path calls (their
+many small device operations come after every exact profiler count:
+CUPTI has been seen to lose scan records after such runs):
+
+19. store_path, per size: a ColumnStore (a Store holding a snapshot of
+   every key the calls can name, "smoke_acct:{k}" up to the size's live
+   keys, drawn as the image's rows, 10% with invalid_at marks, half in
+   the past and half inside the calls' span) and, per configuration, a
+   fresh DeviceEngine (rows 1-3b) and an IciEngine of 8 shards (row 5)
+   on the card attached to it: the main path's 8 calls at max_waves
+   1,000, the first 4 through V1Service, the other 4 as wire bytes
+   through the columnar edge; against the port's CPU engine of the same
+   kind and paging (fused) on the same calls, clock and store (a demote
+   drops a page left with no live row, so only a table paged alike
+   keeps the same dead rows; a mesh's stored keys depend on where its
+   frames lie):
+   every answer, the wide image with its key strings, the store's
+   changes and removals, and per call its gets, change calls and rows
+   read through; launches equal to the table waves, two read-backs a
+   wave, every body that is not all-Gregorian one columnar flush;
+   decisions/s and the host ms of each step of the store path (probe
+   and read-back, Store.get, inject, the decide's launch, gather and
+   read-back, write-behind). No background demoter in this phase.
+20. loader, at 1M per layout: `load_engine` of 1,000,000 snapshots of
+   keys that fit the table into a fresh DeviceEngine on the card
+   (seconds, inject waves), `save_engine` (equal to what was loaded, key
+   for key), then the main path's first call, answered as a CPU engine
+   loaded the same way answers it.
+
+Then 21. store_ops: the store path's torch ops
+(`probe_exists`, `inject`, `gather_rows`) at B = 1,024 on a table of
+each size and layout, alone and as the 8-shard mesh: device ms,
+device operations per call (counted in a fresh process of this script,
+`--store-op-counts`: late in the run CUPTI loses records) and the byte
+bound. The kernels line gives
+rows 1-3b and 5 their launches on the store path
+(`store_path_launches`).
+
 Then a summary line with the wall time, the card's name and power limit
 as nvidia-smi prints them, the kernel table line, and the last line
 `{"ok": true, "device": {"platform": "gpu", ...}}`. Any failure raises
@@ -232,12 +271,15 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import json
+import operator
 import os
 import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from typing import NamedTuple, Tuple
 
@@ -261,6 +303,7 @@ from gubernator_tpu_torch.ops.kernels import (  # noqa: E402
     get_admission,
     get_census,
     get_kernels,
+    get_paged_kernels,
 )
 from gubernator_tpu_torch.ops.layout import (  # noqa: E402
     BATCH_DTYPES,
@@ -276,6 +319,13 @@ from gubernator_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from gubernator_tpu_torch.runtime.engine import DeviceEngine, EngineConfig  # noqa: E402
 from gubernator_tpu_torch.runtime.ici_engine import IciEngine, IciEngineConfig  # noqa: E402
 from gubernator_tpu_torch import wire  # noqa: E402
+from gubernator_tpu_torch.store import (  # noqa: E402
+    ItemSnapshot,
+    MemoryLoader,
+    attach_store,
+    load_engine,
+    save_engine,
+)
 from gubernator_tpu_torch.service.server import (  # noqa: E402
     V1Service,
     serve_get_rate_limits_bytes,
@@ -3120,6 +3170,512 @@ def phase_global_cadence(size: Size, reference, card: str):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the Store and Loader seams (store/store.py; the engine's store path)
+
+# The calls' hash keys are "smoke_acct:{k}" (name "smoke", unique key
+# "acct:{k}"), k = 1 .. the size's live keys.
+STORE_PREFIX = "smoke_acct:"
+# the store phase's calls through the object path; the rest go as bytes
+STORE_OBJECT_CALLS = CALLS // 2
+_SNAP_FIELDS = ("algorithm", "status", "limit", "duration", "remaining", "stamp", "expire_at",
+                "invalid_at", "burst")
+
+
+def store_columns(rng, n: int) -> dict:
+    """The state of n stored keys (row k - 1: key k), drawn as
+    live_image draws its rows: token and leaky, expiries on both sides of
+    NOW, and invalidation marks on 10% of them, half in the past (the
+    row is dead when injected) and half in the next 6 s, which the calls
+    (700 ms apart) cross, so the kernel's invalid_at branch runs while
+    serving."""
+    leaky = rng.random(n) < 0.3
+    limit = rng.integers(10, 1001, n)
+    burst = np.where(leaky, np.where(rng.random(n) < 0.5, limit, rng.integers(1, 2000, n)), 0)
+    u = rng.random(n)
+    return {
+        "algorithm": leaky.astype(np.int64),
+        "status": np.where(leaky, 0, rng.random(n) < 0.1).astype(np.int64),
+        "limit": limit,
+        "duration": rng.integers(1000, 60_001, n),
+        "remaining": np.where(leaky, rng.integers(0, (burst << 20) + 1),
+                              rng.integers(0, limit + 1)),
+        "stamp": NOW - rng.integers(0, 60_000, n),
+        "expire_at": NOW + rng.integers(-30_000, 60_000, n),
+        "invalid_at": np.where(u < 0.05, NOW - rng.integers(1, 5000, n),
+                               np.where(u < 0.10, NOW + rng.integers(0, 6000, n), 0)),
+        "burst": burst,
+    }
+
+
+class ColumnStore:
+    """A Store (store/store.py) holding a snapshot of every key of a
+    numbered keyspace, "smoke_acct:{k}" for k = 1 .. n, in numpy columns
+    (10M Python objects would not fit the phase's time); what the engine
+    writes goes to `data` and what it removes to `removed`, which shadow
+    the columns: a MemoryStore filled with every snapshot, whose changes
+    are `state()`. `get_s` sums the host time of its gets."""
+
+    def __init__(self, cols: dict):
+        self.cols = cols
+        self.n = len(cols["limit"])
+        self.data = {}
+        self.removed = set()
+        self.lock = threading.Lock()
+        self.get_calls = 0
+        self.change_calls = 0
+        self.get_s = 0.0
+
+    def _row(self, key: str):
+        if not key.startswith(STORE_PREFIX):
+            return None
+        tail = key[len(STORE_PREFIX):]
+        if not tail.isdigit() or str(int(tail)) != tail:
+            return None
+        k = int(tail)
+        return k - 1 if 1 <= k <= self.n else None
+
+    def get(self, req):
+        t0 = time.perf_counter()
+        key = req.hash_key()
+        with self.lock:
+            self.get_calls += 1
+            it = self.data.get(key)
+            if it is not None:
+                out = dataclasses.replace(it)
+            elif key in self.removed or (row := self._row(key)) is None:
+                out = None
+            else:
+                out = ItemSnapshot(key=key, **{f: int(self.cols[f][row]) for f in _SNAP_FIELDS})
+        self.get_s += time.perf_counter() - t0
+        return out
+
+    def on_change(self, items) -> None:
+        with self.lock:
+            self.change_calls += 1
+            for it in items:
+                self.data[it.key] = it
+                self.removed.discard(it.key)
+
+    def remove(self, key: str) -> None:
+        with self.lock:
+            self.data.pop(key, None)
+            self.removed.add(key)
+
+    def state(self):
+        with self.lock:
+            return ({k: dataclasses.astuple(v) for k, v in self.data.items()},
+                    sorted(self.removed), self.get_calls, self.change_calls)
+
+
+class _StoreSpans:
+    """Host-clock spans of an engine's store path, summed over a run:
+    the probe with its read-back (`_store_probe`), the inject with its
+    batch's copy (`_store_inject`), the decide's launch (`run_wave`,
+    enqueued only: the gather's read-back waits for it), the gather with
+    the wave's second read-back (`_store_gather`) and the write-behind
+    (`_store_write_behind_core`). The engine's methods are wrapped on
+    this one instance."""
+
+    METHODS = ("_store_probe", "_store_inject", "_store_gather", "_store_write_behind_core")
+
+    def __init__(self, eng):
+        self.s = dict.fromkeys(self.METHODS + ("run_wave",), 0.0)
+        for n in self.METHODS:
+            setattr(eng, n, self._timed(n, getattr(eng, n)))
+        eng.K = eng.K._replace(run_wave=self._timed("run_wave", eng.K.run_wave))
+
+    def _timed(self, n, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.s[n] += time.perf_counter() - t0
+        return run
+
+
+def _store_engine(size: Size, layout: str, paged: bool, mesh: bool, device):
+    """An engine of the store phases: max_waves EDGE_MAX_WAVES (a call is
+    one flush), and on a paged table no background demoter (the mesh's
+    stored keys depend on where the pager puts frames: see
+    phase_store_path)."""
+    pcfg = dict(page_groups=size.page_groups, page_budget=size.page_budget,
+                page_demote_interval_s=0.0) if paged else {}
+    base = dict(num_groups=size.num_groups, ways=WAYS, batch_size=B, layout=layout,
+                max_waves=EDGE_MAX_WAVES, **pcfg)
+    if mesh:
+        return IciEngine(IciEngineConfig(devices=[device] * MESH_SHARDS, **base))
+    return DeviceEngine(EngineConfig(device=torch.device(device).type, **base))
+
+
+def _store_serve(eng, store, calls, clk):
+    """The first STORE_OBJECT_CALLS calls through `V1Service.
+    get_rate_limits` (the object path), the rest as GetRateLimitsReq
+    bytes through `serve_get_rate_limits_bytes` (the columnar edge), 700
+    ms apart. Returns (answers: tuples, then response bytes; per call
+    (store gets, store change calls, rows read through); the serving
+    seconds; per body the columnar flushes)."""
+    svc = V1Service(eng)
+    out, per_call, columnar, secs = [], [], [], 0.0
+    bodies = [encode_request(items) for items in calls[STORE_OBJECT_CALLS:]]
+
+    def counts():
+        return store.get_calls, store.change_calls, eng.stats()["store_injected"]
+
+    for kind, work in (("object", calls[:STORE_OBJECT_CALLS]), ("bytes", bodies)):
+        for w in work:
+            c0, f0 = counts(), eng.stats()["columnar_flushes"]
+            t0 = time.perf_counter()
+            if kind == "object":
+                resp = asyncio.run(svc.get_rate_limits([RateLimitReq(**kw) for kw in w]))
+                secs += time.perf_counter() - t0
+                out.append([(r.status, r.limit, r.remaining, r.reset_time, r.error)
+                            for r in resp])
+            else:
+                out.append(asyncio.run(serve_get_rate_limits_bytes(svc, w)))
+                secs += time.perf_counter() - t0
+                columnar.append(eng.stats()["columnar_flushes"] - f0)
+            per_call.append(tuple(b - a for a, b in zip(c0, counts())))
+            clk.advance(700)
+    clk.advance(-700 * len(out))
+    return out, per_call, secs, columnar
+
+
+def phase_store_path(rng, size: Size, calls, card: str):
+    """The restart case through the store path: a ColumnStore holding a
+    snapshot of every key the calls can name (the size's live keys), a
+    fresh engine attached to it, the main path's 8 calls at max_waves
+    1,000 (a call is one flush), the first 4 through V1Service, the
+    other 4 as wire bytes through the columnar edge (a body's Gregorian
+    items spliced through the object path).
+    Every miss reads through: the prefetch of never-seen keys outside
+    the lock, else the per-wave probe and Store.get, then the inject
+    before the wave's decide; every flush writes behind.
+
+    On the card per configuration of the size: a DeviceEngine (kernel
+    rows 1-3b) and an IciEngine of 8 shards (row 5), each against the
+    port's CPU engine of the same kind and paging (fused) on the same
+    calls, clock and store: a demote drops a page left with no live row
+    (a later touch binds a zeroed frame), so only a table that pages
+    alike keeps the same dead rows of freed keys; and a mesh's store
+    receives only the last shard's lanes, at rows the psum'd slot
+    names, so its contents depend on where frames lie. Every
+    answer, the wide image with its key strings, the store's changes
+    and removals, and per call its gets, change calls and rows read
+    through must be equal; kernel launches equal to the table waves,
+    two read-backs per wave, every body that is not all-Gregorian one
+    columnar flush. Returns {kernel name: launches}."""
+    must_columnar = sum(1 for items in calls[STORE_OBJECT_CALLS:]
+                        if any(not kw["behavior"] & 4 for kw in items))
+    t0 = time.perf_counter()
+    cols = store_columns(rng, size.live_keys)
+    cols_s = time.perf_counter() - t0
+    launched = {}
+    with _clock.freeze(NOW) as clk:
+        refs = {}
+        paged = bool(size.page_groups)
+        for mesh in (False, True):
+            ceng = _store_engine(size, "fused", paged, mesh, "cpu")
+            cstore = ColumnStore(cols)
+            attach_store(ceng, cstore)
+            try:
+                got, per_call, secs, _c = _store_serve(ceng, cstore, calls, clk)
+                refs[mesh] = (got, per_call, cstore.state(), ceng.snapshot())
+            finally:
+                ceng.close()
+            emit({"phase": "store_path_reference", "size": size.name, "mesh": mesh,
+                  "paged": paged, "device": "cpu", "calls": len(got), "seconds": secs,
+                  "stored_keys": size.live_keys, "store_columns_s": cols_s,
+                  "changed_keys": len(refs[mesh][2][0]), "removed_keys": len(refs[mesh][2][1]),
+                  "gets": refs[mesh][2][2], "change_calls": refs[mesh][2][3]})
+        for name, layout, paged, mesh in _edge_configs(size):
+            eng = _store_engine(size, layout, paged, mesh, DEVICE)
+            store = ColumnStore(cols)
+            attach_store(eng, store)
+            spans = _StoreSpans(eng)
+            try:
+                st0 = eng.stats()
+                sync()
+                cuda_decide.reset_launches()
+                got, per_call, secs, columnar = _store_serve(eng, store, calls, clk)
+                launches = dict(cuda_decide.CONFIG_LAUNCHES)
+                st = eng.stats()
+                ssnap = eng.snapshot()
+            finally:
+                eng.close()
+            want, want_calls, want_store, want_snap = refs[mesh]
+            d = {k: st[k] - st0[k] for k in ("flushes", "columnar_flushes", "waves",
+                                               "kernel_launches", "store_readbacks",
+                                               "store_injected", "replica_waves")}
+            decisions = sum(len(c) for c in calls)
+            waves = max(d["waves"], 1)
+            s = spans.s
+            host_ms = {
+                "probe_readback": s["_store_probe"], "store_get": store.get_s,
+                "inject": s["_store_inject"], "decide_launch": s["run_wave"],
+                "gather_readback": s["_store_gather"],
+                "write_behind": s["_store_write_behind_core"],
+            }
+            res = {"phase": "store_path", "size": size.name, "kernel": name, "mesh": mesh,
+                   "paged": paged, "object_calls": STORE_OBJECT_CALLS,
+                   "wire_calls": len(calls) - STORE_OBJECT_CALLS,
+                   "items": decisions, "max_waves": EDGE_MAX_WAVES,
+                   "answer_mismatches": sum(a != b for a, b in zip(got, want)),
+                   "snapshot_columns_differing": _snap_diff(ssnap, want_snap),
+                   "store_state_equal": store.state() == want_store,
+                   "per_call_store_counts_equal": per_call == want_calls,
+                   "store_gets_per_call": [c[0] for c in per_call],
+                   "store_change_calls_per_call": [c[1] for c in per_call],
+                   "injected_rows_per_call": [c[2] for c in per_call],
+                   "changed_keys": len(store.data), "removed_keys": len(store.removed),
+                   "flushes": d["flushes"], "columnar_flushes": d["columnar_flushes"],
+                   "columnar_calls": sum(1 for c in columnar if c == 1),
+                   "bodies_not_all_gregorian": must_columnar,
+                   "waves": d["waves"], "replica_waves": d["replica_waves"],
+                   "engine_kernel_launches": d["kernel_launches"],
+                   "launches": launches[name],
+                   "other_kernel_launches": sum(launches.values()) - launches[name],
+                   "store_readbacks": d["store_readbacks"],
+                   "readbacks_per_wave": d["store_readbacks"] / waves,
+                   "decisions_per_s": decisions / secs, "seconds": secs,
+                   "host_ms": {k: v * 1e3 for k, v in host_ms.items()},
+                   "host_ms_per_wave": {k: v * 1e3 / waves for k, v in host_ms.items()},
+                   "card": card}
+            del ssnap
+            emit(res)
+            if res["answer_mismatches"] or res["snapshot_columns_differing"] \
+                    or not res["store_state_equal"] or not res["per_call_store_counts_equal"]:
+                raise AssertionError(f"{name}: the store path disagrees with the CPU engine")
+            if not (res["launches"] == d["kernel_launches"] == d["waves"] > 0):
+                raise AssertionError(f"{name}: store-path kernel launches do not match the waves")
+            if res["other_kernel_launches"] or d["replica_waves"]:
+                raise AssertionError(f"{name}: another configuration was launched")
+            if d["store_readbacks"] != 2 * d["waves"]:
+                raise AssertionError(f"{name}: not two read-backs per store-path wave")
+            if res["columnar_calls"] != must_columnar:
+                raise AssertionError(f"{name}: a body was served without the columnar path")
+            if not (d["store_injected"] > 0 and store.get_calls > 0 and store.change_calls > 0):
+                raise AssertionError(f"{name}: nothing was read through or written behind")
+            launched[name] = launched.get(name, 0) + launches[name]
+            free_device()
+    return launched
+
+
+_snap_row = operator.attrgetter(*_SNAP_FIELDS)
+
+
+def loader_items(rng, size: Size):
+    """size.live_keys snapshots of keys "smoke_acct:{k}" that fit the
+    table (each in a free way of its group, as live_image places its
+    rows), state from store_columns: what a Loader saved from a full 1M
+    table."""
+    n = size.live_keys
+    keys = [f"{STORE_PREFIX}{k}" for k in range(1, n + n // 8 + 1)]
+    grp = key_hash128_batch(keys, size.num_groups)[2]
+    order = np.argsort(grp, kind="stable")
+    sg = grp[order]
+    rank = np.empty(len(keys), np.int64)
+    rank[order] = np.arange(len(keys)) - np.searchsorted(sg, sg, side="left")
+    keep = np.nonzero(rank < WAYS)[0][:n]
+    if keep.size != n:
+        raise RuntimeError(f"placed only {keep.size} keys")
+    cols = store_columns(rng, n)
+    rows = zip(*(cols[f].tolist() for f in _SNAP_FIELDS))
+    return [ItemSnapshot(keys[i], *row) for i, row in zip(keep.tolist(), rows)]
+
+
+def phase_loader(rng, size: Size, calls, card: str) -> dict:
+    """The Loader round trip at the flat size, per layout on a CUDA
+    DeviceEngine: `load_engine` of the size's live keys' snapshots into a
+    fresh engine (timed; its inject waves counted), `save_engine`, whose
+    snapshots must equal the loaded ones key for key, then the main
+    path's first call, whose answers must equal a CPU engine's loaded
+    the same way (flat fused), with one launch per wave. Returns
+    {kernel name: launches}."""
+    t0 = time.perf_counter()
+    items = loader_items(rng, size)
+    build_s = time.perf_counter() - t0
+    loaded = {it.key: _snap_row(it) for it in items}
+    base = dict(num_groups=size.num_groups, ways=WAYS, batch_size=B)
+    launched = {}
+    with _clock.freeze(NOW):
+        ceng = DeviceEngine(EngineConfig(device="cpu", **base))
+        try:
+            load_engine(ceng, MemoryLoader(items))
+            want = [(r.status, r.limit, r.remaining, r.reset_time, r.error) for r in
+                    asyncio.run(V1Service(ceng).get_rate_limits(
+                        [RateLimitReq(**kw) for kw in calls[0]]))]
+        finally:
+            ceng.close()
+        for layout, _paged in size.configs:
+            name = cuda_decide.config_name(layout, False)
+            eng = DeviceEngine(EngineConfig(device=DEVICE.type, layout=layout, **base))
+            try:
+                st0 = eng.stats()
+                sync()
+                t0 = time.perf_counter()
+                n = load_engine(eng, MemoryLoader(items))
+                sync()
+                load_s = time.perf_counter() - t0
+                st1 = eng.stats()
+                out = MemoryLoader()
+                t0 = time.perf_counter()
+                saved_n = save_engine(eng, out)
+                save_s = time.perf_counter() - t0
+                saved = {it.key: _snap_row(it) for it in out.items}
+                cuda_decide.reset_launches()
+                got = [(r.status, r.limit, r.remaining, r.reset_time, r.error) for r in
+                       asyncio.run(V1Service(eng).get_rate_limits(
+                           [RateLimitReq(**kw) for kw in calls[0]]))]
+                launches = dict(cuda_decide.CONFIG_LAUNCHES)
+                st = eng.stats()
+            finally:
+                eng.close()
+            res = {"phase": "loader", "size": size.name, "kernel": name, "layout": layout,
+                   "loaded": n, "load_s": load_s, "snapshots_build_s": build_s,
+                   "inject_waves": st1["inject_waves"] - st0["inject_waves"],
+                   "injected_rows": st1["injected_rows"] - st0["injected_rows"],
+                   "rows_per_s": n / load_s, "saved": saved_n, "save_s": save_s,
+                   "saved_equal_loaded": saved == loaded,
+                   "call_items": len(calls[0]),
+                   "call_mismatches": sum(a != b for a, b in zip(got, want)),
+                   "call_waves": st["waves"] - st1["waves"], "launches": launches[name],
+                   "other_kernel_launches": sum(launches.values()) - launches[name],
+                   "card": card}
+            del saved
+            emit(res)
+            if not res["saved_equal_loaded"] or saved_n != n:
+                raise AssertionError(f"{name}: save_engine does not give back what was loaded")
+            if res["call_mismatches"]:
+                raise AssertionError(f"{name}: the loaded engine answers unlike the CPU engine")
+            if not (res["launches"] == res["call_waves"] > 0) or res["other_kernel_launches"]:
+                raise AssertionError(f"{name}: launches do not match the call's waves")
+            launched[name] = launches[name]
+            free_device()
+    return launched
+
+
+STORE_OPS_REPS = 10
+# bytes of one wide row (SlotTable) as gather_rows writes it
+WIDE_ROW_BYTES = sum(np.dtype(dt).itemsize for dt in SLOT_DTYPES.values())
+
+
+def _store_op_configs(rng):
+    """(size, layout, paged, mesh, page map) of every table store_ops
+    measures: each size and layout, alone and as the 8-shard mesh."""
+    for size in SIZES:
+        pm = scrambled_page_map(rng, size) if size.page_groups else None
+        for layout, paged in size.configs:
+            for mesh in (False, True):
+                yield size, layout, paged, mesh, pm
+
+
+def _store_op_fns(rng, size: Size, layout: str, paged: bool, mesh: bool, pm):
+    """A table of the configuration on the card, its rows random (the
+    ops' work does not depend on them; paged: 768 frames behind the
+    scrambled map `pm`), and {op: (one call on B lanes, its byte
+    bound)}: per lane its inputs, the W ways' five probe columns (probe,
+    inject), the row written or read, the outputs (probe: one bool;
+    inject: the evicted key; gather: the slot and the wide row), a paged
+    lane's map entry."""
+    pkw = dict(page_groups=size.page_groups, page_budget=size.page_budget)
+    if mesh:
+        K = pmesh.make_mesh_kernels(pmesh.make_mesh([DEVICE] * MESH_SHARDS), layout,
+                                    size.num_groups, WAYS, **(pkw if paged else {}))
+    elif paged:
+        K = get_paged_kernels(layout, size.num_groups, WAYS, size.page_groups,
+                              size.page_budget, DEVICE)
+    else:
+        K = get_kernels(layout)
+    table = K.create(size.num_groups, WAYS, DEVICE)
+    rows = table.data.data if paged else table.data
+    rows.random_(0, 1 << 62)
+    if paged:
+        table.page_map.copy_(torch.as_tensor(pm))
+        groups = resident_groups(rng, size, pm)
+    else:
+        groups = rng.choice(size.num_groups, B, replace=False)
+    grp = torch.as_tensor(groups.astype(np.int32), device=DEVICE)
+    hi = torch.as_tensor(rng.integers(1, 1 << 62, B), device=DEVICE)
+    lo = torch.as_tensor(rng.integers(1, 1 << 62, B), device=DEVICE)
+    slots = torch.as_tensor(rng.integers(0, rows.shape[0], B), device=DEVICE)
+    items = InjectBatch.zeros(B)._replace(
+        key_hi=hi.cpu().numpy(), key_lo=lo.cpu().numpy(), group=groups.astype(np.int32),
+        limit=np.full(B, 100), duration=np.full(B, 60_000), remaining=np.full(B, 7),
+        stamp=np.full(B, NOW), expire_at=np.full(B, NOW + 60_000), active=np.ones(B, np.bool_),
+    ).to_device(DEVICE)
+    probe_b, _rest, row_b = ROW_BYTES[layout]
+    map_b = 4 if paged else 0
+    item_bytes = sum(np.dtype(dt).itemsize for dt in INJECT_DTYPES.values())
+    return table, {
+        "probe_exists": (lambda: K.probe_exists(table, hi, lo, grp, NOW, WAYS),
+                         B * (8 + 8 + 4 + WAYS * probe_b + 1 + map_b)),
+        "inject": (lambda: K.inject(table, items, NOW, WAYS),
+                   B * (item_bytes + WAYS * probe_b + row_b + 16 + map_b)),
+        "gather_rows": (lambda: K.gather_rows(table, slots),
+                        B * (8 + row_b + WIDE_ROW_BYTES)),
+    }
+
+
+def store_op_counts() -> dict:
+    """The device operations per call of every store op of store_ops,
+    from torch.profiler: run by store_ops in a fresh process of this
+    script (`--store-op-counts`), since late in a long run CUPTI has been
+    seen to lose records. {"size/layout/mesh": {op: ops per call}}."""
+    rng = np.random.default_rng(0)
+    out = {}
+    for size, layout, paged, mesh, pm in _store_op_configs(rng):
+        table, ops = _store_op_fns(rng, size, layout, paged, mesh, pm)
+        for fn, _nbytes in ops.values():
+            fn()
+        sync()
+        out[f"{size.name}/{layout}/{int(mesh)}"] = {
+            name: _ops_per_call(fn) for name, (fn, _nbytes) in ops.items()}
+        del table, ops
+        free_device()
+    return out
+
+
+def phase_store_ops(rng, card: str) -> dict:
+    """The store path's torch ops (XLA programs in the JAX package), one
+    wave of B lanes on a table of each size and layout, alone and as the
+    mesh of 8 shards: `probe_exists` (the residency probe), `inject`
+    (the ownership-masked one on the mesh) and `gather_rows` (the rows
+    at a wave's slots, expanded to the wide struct); the lanes of a
+    paged table on resident pages. Device ms (events, L2 flushed, the
+    stream held busy while the host enqueues, median of STORE_OPS_REPS),
+    device operations per call (torch.profiler, in a fresh process:
+    `store_op_counts`) and the byte bound (`_store_op_fns`). Returns
+    {(size, layout, mesh): line}."""
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--store-op-counts"],
+        capture_output=True, text=True, check=True, timeout=600,
+    )
+    counts = json.loads(child.stdout.strip().splitlines()[-1])
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    out = {}
+    for size, layout, paged, mesh, pm in _store_op_configs(rng):
+        table, ops = _store_op_fns(rng, size, layout, paged, mesh, pm)
+        line = {"phase": "store_ops", "size": size.name, "layout": layout,
+                "paged": paged, "mesh": mesh, "lanes": B, "card": card}
+        for name, (fn, nbytes) in ops.items():
+            fn()
+            sync()
+            line[name] = {
+                "device_ms_median": _median_ms(fn, STORE_OPS_REPS, flush,
+                                               hold_cycles=SCAN_HOLD_CYCLES),
+                "device_ops_per_call": counts[f"{size.name}/{layout}/{int(mesh)}"][name],
+                "bytes_bound": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes"}
+        emit(line)
+        out[(size.name, layout, mesh)] = line
+        del table, ops
+        free_device()
+    del flush
+    return out
+
+
 def run_global(rng, size: Size, reference, card: str):
     """The GLOBAL replica tier's phases. Returns {replica kernel name:
     (max err, times line)} and {layout: launches on the main path}."""
@@ -3154,11 +3710,12 @@ def replica_entry(name, layout, err, times, launches):
 def run_size(rng, size: Size, card: str):
     """Kernel checks and times for each wave, scan and sharded
     configuration of the size, then its main path and its mesh main
-    path. Returns ({wave kernel name: (kernel, times, main) lines}, {scan
-    kernel name: (max err, times line)}, {sharded kernel name: (max err,
-    times line)}, {(sharded kernel name, size): mesh main path line},
-    and on the flat size its main path's reference (the image, calls
-    and CPU answers, for the GLOBAL phases), else None)."""
+    path. Returns ({wave kernel name: (kernel, times, main) lines},
+    {scan kernel name: (max err, times line)}, {sharded kernel name:
+    (max err, times line)}, {(sharded kernel name, size): mesh main path
+    line}, on the flat size its main path's reference (the image, calls
+    and CPU answers, for the GLOBAL phases), else None, and the main
+    path's calls, for the store phases)."""
     image = live_image(rng, size)
     pm = scrambled_page_map(rng, size) if size.page_groups else None
     checked, scans, meshes = {}, {}, {}
@@ -3192,9 +3749,10 @@ def run_size(rng, size: Size, card: str):
     if size.page_groups:
         phase_demoter(size, reference, card)
     keep = None if size.page_groups else reference
+    calls = reference[1]
     del reference
     return ({k: (err, times, main[k]) for k, (err, times) in checked.items()}, scans,
-            meshes, mesh_main, keep)
+            meshes, mesh_main, keep, calls)
 
 
 def team_vs_scan(size, layout, paged, times, stimes, card) -> None:
@@ -3273,7 +3831,13 @@ def mesh_entry(name, layout, errs, times, launches):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--store-op-counts", action="store_true",
+                    help="print the store ops' device operations per call (store_ops "
+                         "runs this in a fresh process) and exit")
     args = ap.parse_args()
+    if args.store_op_counts:
+        print(json.dumps(store_op_counts()))
+        return 0
     t0 = time.perf_counter()
     rng = np.random.default_rng(args.seed)
     name = torch.cuda.get_device_name(0)
@@ -3287,9 +3851,10 @@ def main() -> int:
 
     phase_build()
     entries, scans = [], []
-    mesh_errs, mesh_times, mesh_launches = {}, {}, {}
+    mesh_errs, mesh_times, mesh_launches, size_calls = {}, {}, {}, []
     for size in SIZES:
-        done, scanned, meshed, mesh_main, reference = run_size(rng, size, smi)
+        done, scanned, meshed, mesh_main, reference, calls = run_size(rng, size, smi)
+        size_calls.append((size, calls))
         if reference is not None:
             flat, flat_reference = size, reference
         for layout, paged in size.configs:
@@ -3309,6 +3874,16 @@ def main() -> int:
     # profiler sessions come after every exact count of the phases above
     replicas, replica_launches = run_global(rng, flat, flat_reference, smi)
     del flat_reference
+    # the store path's thousands of small operations come after every
+    # exact profiler count too (CUPTI lost scan records after them)
+    store_launches = {}
+    for size, calls in size_calls:
+        for k, v in phase_store_path(rng, size, calls, smi).items():
+            store_launches[k] = store_launches.get(k, 0) + v
+        if not size.page_groups:
+            phase_loader(rng, size, calls, smi)
+    del size_calls
+    phase_store_ops(rng, smi)
     entries += scans
     entries += [mesh_entry(cuda_decide.sharded_name(lay), lay, mesh_errs[cuda_decide.sharded_name(lay)],
                            mesh_times[cuda_decide.sharded_name(lay)],
@@ -3317,6 +3892,11 @@ def main() -> int:
     entries += [replica_entry(cuda_decide.replica_name(lay), lay,
                               *replicas[cuda_decide.replica_name(lay)], replica_launches[lay])
                 for lay in ("fused", "narrow")]
+    # the store path's launches (phase 19) beside rows 1-3b and 5, each
+    # counted from 0 around its own runs
+    for e in entries:
+        if e["name"] in store_launches:
+            e["store_path_launches"] = store_launches[e["name"]]
     emit({"phase": "summary", "wall_s": time.perf_counter() - t0,
           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
           "nvidia_smi": smi})

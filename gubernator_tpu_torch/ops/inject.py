@@ -1,12 +1,16 @@
-"""Direct state injection into the slot table (the AddCacheItem analog).
+"""Direct state injection into the slot table (the AddCacheItem analog),
+and the residency probe of the store path.
 
-The port of `gubernator_tpu/ops/inject.py` (`InjectBatch`) and of the
-raw injects of the two layouts the port serves,
+The port of `gubernator_tpu/ops/inject.py` (`InjectBatch`), of the raw
+injects of the two layouts the port serves,
 `gubernator_tpu/ops/fused.py::_inject_fused_impl` and
-`gubernator_tpu/ops/narrow.py::_inject_narrow_impl`, as torch ops. The
-GLOBAL replica tier lands an authoritative push on every replica with
-it (parallel/ici.py `make_inject_replicas`); the store path's read-
-through reuses it.
+`gubernator_tpu/ops/narrow.py::_inject_narrow_impl`, and of their
+residency probes `probe_exists_fused` / `probe_exists_narrow`, as torch
+ops (XLA programs in the JAX package, not Pallas kernels). The GLOBAL
+replica tier lands an authoritative push on every replica with the
+inject (parallel/ici.py `make_inject_replicas`); the store path's
+read-through probes a wave's keys (`probe_rows`) and injects the
+state of the misses; the Loader restore injects a checkpoint.
 
 Each lane probes its key's group with the decide's way policy
 (`fused.probe_ways`: a live match, else matched-expired > empty >
@@ -108,3 +112,28 @@ def inject_rows(
     })
     data.index_add_(0, slot, torch.where(act[:, None], new_row - st_row, 0))
     return evicted_hi, evicted_lo
+
+
+def probe_rows(codec: RowCodec, data: torch.Tensor, key_hi: torch.Tensor,
+               key_lo: torch.Tensor, group: torch.Tensor, now: int,
+               ways: int) -> torch.Tensor:
+    """Residency probe of the (N, C) rows `data` of a layout (`codec`):
+    (B,) bool, True where a lane's key is live in its group (used, not
+    expired, not invalidated). Reads only the columns up to the last
+    probe column (the narrow layout's 40-byte hot prefix). A group
+    outside the table (a paged table's sentinel, the physical group
+    count) probes as absent."""
+    now = int(now)
+    n_groups = data.shape[0] // ways
+    g = group.to(I64)
+    valid = (g >= 0) & (g < n_groups)
+    grp_base = torch.where(valid, g, 0) * ways
+    way_ix = grp_base[:, None] + torch.arange(ways, dtype=I64, device=data.device)[None, :]
+    rows = data[:, :max(codec.probe) + 1][way_ix]  # (B, W, hot columns)
+    c_khi, c_klo, c_meta, c_exp, c_inv = codec.probe
+    w_used = (rows[..., c_meta] & META_USED) != 0
+    w_inv = rows[..., c_inv]
+    w_expired = w_used & ((rows[..., c_exp] < now) | ((w_inv != 0) & (w_inv < now)))
+    live = (w_used & ~w_expired & (rows[..., c_khi] == key_hi[:, None])
+            & (rows[..., c_klo] == key_lo[:, None]))
+    return live.any(dim=1) & valid

@@ -9,8 +9,10 @@ launch of the scan kernel on a CUDA table. Snapshots are exchanged in the wide f
 (to_wide/from_wide), the same format the JAX package uses.
 `get_paged_kernels` puts either layout behind a page map (ops/paged.py);
 `get_census` and `get_admission` give the layout's table scans
-(ops/census.py, ops/admission.py); `inject` writes authoritative rows
-(ops/inject.py; the paged layouts' inject comes with the store path).
+(ops/census.py, ops/admission.py). The store path's ops are torch ops
+(ops/inject.py): `inject` writes authoritative rows, `probe_exists`
+asks which of a wave's keys are live, and `gather_rows` reads the rows
+a wave wrote, expanded to the wide struct.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 from gubernator_tpu_torch.ops import cuda_decide, fused, narrow
-from gubernator_tpu_torch.ops.inject import inject_rows
+from gubernator_tpu_torch.ops.inject import inject_rows, probe_rows
 
 # The layouts this package serves; EngineConfig.layout validates against it.
 LAYOUTS = ("fused", "narrow")
@@ -43,6 +45,9 @@ class Kernels(NamedTuple):
     # evicted_hi, evicted_lo): authoritative rows written in place
     # (ops/inject.py)
     inject: object
+    # (table, key_hi, key_lo, group, now, ways) -> (B,) bool on the
+    # table's device: the residency probe (ops/inject.py probe_rows)
+    probe_exists: object
 
 
 def _make(layout: str, module, table_cls, gather_rows) -> Kernels:
@@ -59,6 +64,9 @@ def _make(layout: str, module, table_cls, gather_rows) -> Kernels:
     def inject(table, items, now, ways):
         return (table, *inject_rows(cuda_decide.CODECS[layout], table.data, items, now, ways))
 
+    def probe_exists(table, key_hi, key_lo, group, now, ways):
+        return probe_rows(cuda_decide.CODECS[layout], table.data, key_hi, key_lo, group, now, ways)
+
     return Kernels(
         layout=layout,
         create=table_cls.create,
@@ -70,6 +78,7 @@ def _make(layout: str, module, table_cls, gather_rows) -> Kernels:
         from_wide=module.pack_table,
         gather_rows=gather_rows,
         inject=inject,
+        probe_exists=probe_exists,
     )
 
 

@@ -28,7 +28,14 @@ sends them in ONE host-to-device copy, transposed into the frame on the
 card, without waiting for the device. (Unpacking or packing row-major
 rows on the host costs several times the copy: PERF.md, PR 8.)
 `extract_page` (the JAX package's op) gathers a frame's rows as a wide
-SlotTable on the table's device. The page ops update the table and the
+SlotTable on the table's device.
+
+The store path's ops translate logical groups through the map first
+(`fused.xlate_groups`, the JAX package's `_xlate`), then run the flat
+layout's op over the frames: `inject` writes rows (a lane on a page
+that is not resident writes nothing and reports no eviction),
+`probe_exists` asks which keys are live (such a lane is absent), and
+`gather_rows` reads physical slots (the decide's `slot`). The page ops update the table and the
 device map IN PLACE on PyTorch's current stream (JAX donates and
 returns new buffers); the caller keeps the pager's host mirror of the
 map in step.
@@ -42,6 +49,7 @@ import numpy as np
 import torch
 
 from gubernator_tpu_torch.ops import cuda_decide, fused
+from gubernator_tpu_torch.ops.inject import inject_rows
 from gubernator_tpu_torch.ops.kernels import BYTES_PER_SLOT, get_kernels
 from gubernator_tpu_torch.ops.layout import SlotTable
 
@@ -92,6 +100,10 @@ class PagedKernels(NamedTuple):
     to_wide: object  # pt -> SlotTable view of the PHYSICAL table
     from_wide: object  # raises NotImplementedError
     bytes_per_slot: int
+    # --- the store path (ops/inject.py), logical groups ---
+    inject: object  # (pt, InjectBatch on the device, now, ways) -> (pt, evicted_hi, evicted_lo)
+    probe_exists: object  # (pt, key_hi, key_lo, group, now, ways) -> (B,) bool
+    gather_rows: object  # (pt, physical slots) -> SlotTable rows (slot == N reads zeros)
     # --- page ops (in place; each returns the PagedTable) ---
     bind_page: object  # (pt, lp, pp) -> pt: zero frame pp, map lp -> pp
     unbind_page: object  # (pt, lp, pp) -> pt: zero frame pp, map lp -> -1
@@ -161,6 +173,21 @@ def make_paged_kernels(
             raise ValueError(f"this paged table has {ways} ways, not {w_}")
         flush.launch(w, pt.data.data, pt.page_map, now, layout=layout, ways=ways, gpp=gpp)
         return pt
+
+    def _phys(pt, group):
+        return fused.xlate_groups(pt.page_map, group, gpp, num_phys_groups)
+
+    def _inject(pt, items, now, w=ways):
+        if w != ways:
+            raise ValueError(f"this paged table has {ways} ways, not {w}")
+        phys = _phys(pt, items.group)
+        items = items._replace(group=phys, active=items.active & (phys < num_phys_groups))
+        return (pt, *inject_rows(cuda_decide.CODECS[layout], pt.data.data, items, now, ways))
+
+    def _probe_exists(pt, key_hi, key_lo, group, now, w=ways):
+        if w != ways:
+            raise ValueError(f"this paged table has {ways} ways, not {w}")
+        return base.probe_exists(pt.data, key_hi, key_lo, _phys(pt, group), now, ways)
 
     def _bind_page(pt, lp, pp):
         _frame(pt, pp).zero_()
@@ -248,6 +275,9 @@ def make_paged_kernels(
         to_wide=lambda pt: base.to_wide(pt.data),
         from_wide=_from_wide,
         bytes_per_slot=BYTES_PER_SLOT[layout],
+        inject=_inject,
+        probe_exists=_probe_exists,
+        gather_rows=lambda pt, slots: base.gather_rows(pt.data, slots),
         bind_page=_bind_page,
         unbind_page=_unbind_page,
         extract_page=_extract_page,

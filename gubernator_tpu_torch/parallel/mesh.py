@@ -27,6 +27,15 @@ The combined `slot` is the psum's, not a global slot index: a masked
 lane reports its shard's n_local, so an owned lane's slot is its local
 slot + (D - 1) * n_local and an unowned lane's is D * n_local; `freed`
 is int32 (ROADMAP.md §C).
+
+The store path's ops over a sharded table (JAX `make_mesh_kernels`):
+`inject` is the ownership-masked inject (`make_sharded_inject`);
+`probe_exists` and `gather_rows` are the layout's own over the whole
+table, as GSPMD partitions the JAX package's. So the store path's
+`gather_rows(table, out.slot)` reads the psum's slot as a global one,
+as the JAX package's does: an owned lane of shard d < D - 1 reads a
+row of shard D - 1, whose key fails the write-behind's key check, and
+only shard D - 1's lanes persist (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from gubernator_tpu_torch.ops import cuda_decide
+from gubernator_tpu_torch.ops.inject import inject_rows
 from gubernator_tpu_torch.ops.kernels import get_kernels
 
 # The multi-device tier defaults to the fused layout, as the single-chip
@@ -131,6 +141,29 @@ def make_sharded_decide(mesh: Mesh, num_groups: int, ways: int = 8,
     return decide_fn
 
 
+def make_sharded_inject(mesh: Mesh, num_groups: int, ways: int = 8,
+                        layout: str = DEFAULT_LAYOUT):
+    """inject(table, items, now) -> (table, evicted_hi, evicted_lo) over
+    a sharded table, in place: the decide's ownership mask applied to
+    the inject batch, each shard injecting its own lanes, the evicted
+    keys summed over the shards (JAX `make_sharded_inject`). The shards
+    are rows [d * n_local, (d + 1) * n_local) of one table and every
+    lane has one owner, so shard d's inject at local group g - d *
+    groups_per is the inject at global group g, and the sum of the
+    evicted keys is the owner's: one inject over the whole table with
+    the lanes no shard owns made inactive."""
+    if num_groups % mesh.size:
+        raise ValueError(f"num_groups {num_groups} must divide by mesh size {mesh.size}")
+    codec = cuda_decide.CODECS[layout]
+
+    def inject_fn(table, items, now):
+        g = items.group.to(torch.int64)
+        owned = items.active & (g >= 0) & (g < num_groups)
+        return (table, *inject_rows(codec, table.data, items._replace(active=owned), now, ways))
+
+    return inject_fn
+
+
 def _run_sharded(table, flush, w, data, page_map, now, layout, ways, n_shards, gpp):
     """Wave w of an engine flush (`cuda_decide.WaveFlush`) as one
     sharded wave over `n_shards` shards of `data` (the rows of `table`),
@@ -152,8 +185,9 @@ def make_mesh_kernels(mesh: Mesh, layout: str, num_groups: int, ways: int = 8, *
     binds one kernel set and never learns the topology.
 
     Flat (page_groups == 0): an `ops.kernels.Kernels` whose decide is the
-    sharded wave and whose read-side ops (to_wide, gather_rows) are the
-    layout's own: the sharded table's image is the flat table's.
+    sharded wave, whose inject is the ownership-masked one, and whose
+    read-side ops (to_wide, gather_rows, probe_exists) are the layout's
+    own: the sharded table's image is the flat table's.
 
     Paged (page_groups > 0): an `ops.paged.PagedKernels` whose PHYSICAL
     frames are split into D shards of page_budget / D frames and whose
@@ -163,16 +197,22 @@ def make_mesh_kernels(mesh: Mesh, layout: str, num_groups: int, ways: int = 8, *
     num_phys_groups / D); a lane on a page that is not resident maps
     outside every shard's range and is inactive everywhere. The page
     ops are the single-table ones: frame pp lies in shard pp // (page_
-    budget / D), which the pager's per-shard frame pools respect."""
+    budget / D), which the pager's per-shard frame pools respect. So are
+    the store path's: a lane's owner in PHYSICAL group space is the
+    shard of its frame, and a lane on a page that is not resident (no
+    owner) injects nothing, so the paged table's translated inject is
+    the ownership-masked one."""
     n_dev = mesh.size
     if num_groups % n_dev:
         raise ValueError(f"num_groups {num_groups} must divide by mesh size {n_dev}")
     if page_groups <= 0:
         base = get_kernels(layout)
         decide_fn = make_sharded_decide(mesh, num_groups, ways, layout)
+        inject_fn = make_sharded_inject(mesh, num_groups, ways, layout)
         return base._replace(
             create=lambda *_a, **_k: create_sharded_table(mesh, num_groups, ways, layout),
             decide=lambda t, b, now, ways_=ways: decide_fn(t, b, now),
+            inject=lambda t, i, now, ways_=ways: inject_fn(t, i, now),
             decide_scan=_no_scan,
             run_wave=lambda t, fl, w, now, ways_=ways: _run_sharded(
                 t, fl, w, t.data, None, now, layout, ways, n_dev, 0),

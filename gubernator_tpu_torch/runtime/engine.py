@@ -74,6 +74,26 @@ is released, behind one event. A paged table's physical frames are
 scanned on the device and its host tier with the numpy oracles; a
 replica tier's replica 0 is the "replica" tier of both snapshots.
 
+Store path (`store`, store/store.py; JAX `engine.py` `_execute_waves`,
+reference algorithms.go:45-51, 149-153): with a Store attached, each
+wave of the table runs the reference's per-request sequence at wave
+granularity, under the table lock, on the engine's stream:
+`ensure_resident` (paged) -> `probe_exists` of the wave's keys, read
+back -> the freshest state of each miss (a row this flush already
+served, the prefetch of never-seen keys made outside the lock, else
+`Store.get`) -> `inject` -> decide (the hand kernel on a card) ->
+`gather_rows(table, out.slot)` with the wave's evicted keys and freed
+flags, read back. So the store path reads back twice per wave where
+the store-less path reads back once per flush; the flush's decisions
+still come back in one copy behind its last wave. Write-behind (the
+last operation per key wins, in request order; a token-bucket RESET
+free is a `store.remove`) runs before the flush's futures resolve. A
+Store pins the pipeline at depth 1, as the JAX engine does. The waves
+keep the widths of the store-less path: the JAX engine pins them at
+`batch_size` so that its store-path programs stay compiled at one
+shape, which changes no answer and which the port has no need of. The
+replica tier's lanes never persist.
+
 Thread model: callers on any thread enqueue; one pump thread assembles
 and launches; the completion thread (depth >= 2) reads the decisions
 back and resolves futures. The table lock guards the table and the
@@ -84,6 +104,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
 import queue
 import threading
 import time
@@ -93,6 +114,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from gubernator_tpu_torch import wire
 from gubernator_tpu_torch.api.keys import key_hash128_batch, key_hash128_batch_raw
 from gubernator_tpu_torch.api.types import (
     Behavior,
@@ -104,6 +126,7 @@ from gubernator_tpu_torch.api.types import (
 from gubernator_tpu_torch.ops import cuda_decide
 from gubernator_tpu_torch.models.bucket import MAX_COUNT, MAX_DURATION_MS
 from gubernator_tpu_torch.ops.encode import EncodeError, encode_one, encode_rows
+from gubernator_tpu_torch.ops.inject import INJECT_DTYPES, InjectBatch
 from gubernator_tpu_torch.ops.admission import admission_oracle
 from gubernator_tpu_torch.ops.census import census_oracle
 from gubernator_tpu_torch.ops.kernels import BYTES_PER_SLOT, LAYOUTS, get_admission, get_census
@@ -116,6 +139,7 @@ from gubernator_tpu_torch.ops.layout import (
 )
 from gubernator_tpu_torch.runtime.pager import wide_zeros
 from gubernator_tpu_torch.runtime.topology import SingleChipTopology
+from gubernator_tpu_torch.store.store import SNAPSHOT_COLUMNS, ItemSnapshot
 from gubernator_tpu_torch.utils import clock as _clock
 
 
@@ -261,11 +285,46 @@ class _FlushTicket:
         "rflush",      # the replica tier's WaveFlush, or None
         "waves",       # wave count (both tiers)
         "launches",    # kernel launches made by the waves
+        "store",       # with a Store: (_StoreFlush, write-behind entries
+                       # (hash_key, wave, lane, hi, lo) in request order)
     )
 
     def __init__(self, **kw):
         for k in self.__slots__:
             setattr(self, k, kw.get(k))
+
+
+# The gathered row fields the store path reads back per wave, then the
+# wave's evicted keys and freed flags: the rows of its host block.
+_WB_FIELDS = ("used", "key_hi", "key_lo", "algo", "status", "limit", "duration",
+              "remaining", "stamp", "expire_at", "invalid_at", "burst")
+_R = {f: i for i, f in enumerate(_WB_FIELDS + ("evicted_hi", "evicted_lo", "freed"))}
+_N_ROWS = len(_R)
+
+
+class _StoreFlush:
+    """The store path's state for one flush (`_execute_waves` with a
+    Store): per wave {lane: (request, or the item's index when
+    `resolver` builds requests lazily, key_hi, key_lo)}, the prefetched
+    snapshots of never-seen keys, where each key was last served in
+    this flush, each wave's host block ((_N_ROWS, wave width) int64: the
+    rows its decide wrote, its evicted keys, its freed flags) with its
+    offset among the flush's lanes, and the flush's ('d' displaced | 'i'
+    inserted, key) events, in the JAX engine's order."""
+
+    __slots__ = ("lane_reqs", "prefetched", "resolver", "served", "rows", "offsets",
+                 "events", "readbacks", "injected")
+
+    def __init__(self, lane_reqs, prefetched, resolver=None):
+        self.lane_reqs = lane_reqs
+        self.prefetched = prefetched
+        self.resolver = resolver
+        self.served: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        self.rows: List[np.ndarray] = []
+        self.offsets: List[int] = []
+        self.events: List[Tuple[str, Tuple[int, int]]] = []
+        self.readbacks = 0
+        self.injected = 0
 
 
 _FLUSH = object()
@@ -317,6 +376,8 @@ class MeshEngine:
             raise ValueError("pipeline_depth must be >= 1")
         self.cfg = cfg
         self.now_fn = now_fn
+        # optional Store plugin (store/store.py attach_store)
+        self.store = None
         # The engine's one stream on a card (see the module docstring).
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         with self._on_stream():
@@ -356,6 +417,7 @@ class MeshEngine:
             requests=0,
             cache_hits=0, cache_misses=0, unexpired_evictions=0, over_limit=0,
             inflight_max=0,
+            store_readbacks=0, store_injected=0, inject_waves=0, injected_rows=0,
         )
 
         self._queue: "queue.SimpleQueue" = queue.SimpleQueue()
@@ -489,8 +551,11 @@ class MeshEngine:
         GLOBAL replica tier's), kernel_launches, requests, the decide
         metrics (cache hits/misses, unexpired evictions, over-limit
         answers), inflight_max (the most flushes in flight at once: from
-        the end of a flush's dispatch to the end of its completion) and
-        pipeline_depth; with a paged table also the pager's promotes,
+        the end of a flush's dispatch to the end of its completion),
+        pipeline_depth, the store path's device-to-host reads
+        (store_readbacks, two per wave) and rows read through into the
+        table (store_injected), and the waves and rows of
+        `inject_snapshots` (inject_waves, injected_rows); with a paged table also the pager's promotes,
         demotes, binds, resident_pages and host_pages."""
         with self._stats_lock:
             out = dict(self._stats)
@@ -861,8 +926,10 @@ class MeshEngine:
 
     def _pipeline_active(self) -> bool:
         """Tickets go to the completion thread while serving at depth
-        >= 2; the shutdown drain completes inline."""
-        return self._pipe_q is not None and not self._draining
+        >= 2 and store-less (a Store's read-through reads back inside the
+        dispatch anyway, and its write-behind must not race the next
+        flush's prefetch); the shutdown drain completes inline."""
+        return self._pipe_q is not None and not self._draining and self.store is None
 
     def _process(self, items: List[Tuple[RateLimitReq, object]]) -> list:
         """One flush through both stages. Serial (depth 1, or draining):
@@ -963,13 +1030,22 @@ class MeshEngine:
         the round-robin cursor, its waves assembled per (home, slot)
         pair, whose value home * num_rgroups + slot is the lane's group
         column (`parallel/ici.py`). The cursor advances only for an item
-        that was placed, as JAX's does."""
+        that was placed, as JAX's does.
+
+        With a Store, the never-seen keys of the flush (every tier's, as
+        JAX's) are fetched here, outside the table lock, and the table's
+        waves run the store path (`_execute_waves`)."""
         now = self.now_fn()
         cfg = self.cfg
+        store = self.store
         hi_a, lo_a, grp_a = key_hash128_batch(
             [req.hash_key() for req, _ in items], cfg.num_groups
         )
         hi_l, lo_l, grp_l = hi_a.tolist(), lo_a.tolist(), grp_a.tolist()
+        prefetched = None
+        if store is not None:
+            prefetched = self._store_prefetch(
+                [(req, (hi_l[i], lo_l[i])) for i, (req, _) in enumerate(items)])
         self._maybe_prune_key_strings()
         rt = self._rtier
         glob = int(Behavior.GLOBAL) if rt is not None else 0
@@ -1035,21 +1111,39 @@ class MeshEngine:
         (hb, spans), (rhb, rspans) = hbs["s"], hbs["r"]
         if not spans and not rspans:
             return carry, None
-        flush, rflush, launches = self._execute_waves(hb, spans, now, rhb, rspans)
+        sf = seq = None
+        if store is not None:
+            # the table's lanes: their requests per wave for the
+            # read-through, and the write-behind's entries in request order
+            sf = _StoreFlush([{} for _ in spans], prefetched)
+            seq = []
+            for i, ((req, _), place) in enumerate(zip(items, placements)):
+                if place is not None and place[0] == "s":
+                    _t, w, lane = place
+                    sf.lane_reqs[w][lane] = (req, hi_l[i], lo_l[i])
+                    seq.append((req.hash_key(), w, lane, hi_l[i], lo_l[i]))
+        flush, rflush, launches = self._execute_waves(hb, spans, now, rhb, rspans, sf)
         return carry, _FlushTicket(
             items=items, placements=placements, flush=flush, rflush=rflush,
             waves=len(spans) + len(rspans), launches=launches,
+            store=(sf, seq) if sf is not None else None,
         )
 
     def _complete(self, t: _FlushTicket) -> None:
         """Pipeline stage 2: wait for the ticket's read-back (its events
-        on a card), count the flush over both tiers, resolve its
-        futures."""
+        on a card), count the flush over both tiers, run the Store's
+        write-behind (before any future resolves: a caller that saw its
+        answer finds the store holding it, as the reference's OnChange
+        runs within the request), resolve its futures."""
         hosts = {"s": t.flush.host() if t.flush is not None else [],
                  "r": t.rflush.host() if t.rflush is not None else []}
         served = sum(p is not None for p in t.placements)
         self._count_flush("flushes", hosts["s"] + hosts["r"], t.waves, t.launches, served,
                           len(hosts["r"]))
+        if t.store is not None:
+            sf, seq = t.store
+            self._drop_displaced_strings(sf.events)
+            self._store_write_behind_core(seq, sf)
         for (_req, fut), place in zip(t.items, t.placements):
             if place is None:
                 continue  # resolved (encode error) or carried
@@ -1078,7 +1172,8 @@ class MeshEngine:
             s["over_limit"] += over
 
     def _execute_waves(self, hb: Optional[RequestBatch], spans, now: int,
-                       rhb: Optional[RequestBatch] = None, rspans=()):
+                       rhb: Optional[RequestBatch] = None, rspans=(),
+                       sf: Optional[_StoreFlush] = None):
         """Run decide over a flush's scatter-disjoint waves, in order,
         under the table lock, on the engine's stream: `hb` holds every
         wave's lanes on the host, wave w the span `spans[w] = (offset,
@@ -1090,6 +1185,12 @@ class MeshEngine:
         over the tier's table memo, as JAX runs them after the sharded
         waves. Returns (flush or None, replica flush or None, kernel
         launches).
+
+        With `sf` (a Store is attached) each table wave runs the store
+        path around its decide: the read-through before it
+        (`_store_readthrough`: probe, read back, inject the misses'
+        state) and the gather after it (`_store_gather`: the rows it
+        wrote, read back); the decide is the same launch.
 
         If a wave fails after earlier waves of the table committed,
         raises TableCommittedError so no caller retries the batch. A
@@ -1117,10 +1218,15 @@ class MeshEngine:
                         self.table = pager.ensure_resident(
                             self.table, pager.touched_pages(hb.group[sl], hb.active[sl])
                         )
+                    inj = None
+                    if sf is not None:
+                        inj = self._store_readthrough(sf, flush, w, now, hb.group[off:off + width])
                     before = cuda_decide.thread_launches()
                     self.table = self.K.run_wave(self.table, flush, w, now, self.cfg.ways)
                     launches += cuda_decide.thread_launches() - before
                     done += 1
+                    if sf is not None:
+                        self._store_gather(sf, flush, w, inj)
             except Exception as e:
                 if done:
                     raise TableCommittedError(str(e)) from e
@@ -1138,7 +1244,275 @@ class MeshEngine:
             for f in (flush, rflush):
                 if f is not None:
                     f.read_back()
+        if sf is not None:
+            with self._stats_lock:
+                self._stats["store_readbacks"] += sf.readbacks
+                self._stats["store_injected"] += sf.injected
         return flush, rflush, launches
+
+    # -- the store path (Store read-through and write-behind) ------------------
+
+    def _store_prefetch(self, reqs, resolve=None, record=()) -> dict:
+        """Store.get, outside the table lock, of the keys this engine has
+        never seen (absent from the key dictionary, which holds every key
+        of the table): {(hi, lo): snapshot}. `reqs` are (request, key)
+        pairs, or (item index, key) with `resolve` building the request;
+        `record` ((key, string) pairs) joins the dictionary under the same
+        lock. A store outage is a miss."""
+        with self._keys_lock:
+            need, seen = [], set()
+            for req, k in reqs:
+                if k not in self._key_strings and k not in seen:
+                    seen.add(k)
+                    need.append((req, k))
+            self._key_strings.update(record)
+        out = {}
+        for req, k in need:
+            try:
+                snap = self.store.get(resolve(req) if resolve is not None else req)
+            except Exception:
+                snap = None  # a store outage is a cache miss, not a crash
+            if snap is not None:
+                out[k] = snap
+        return out
+
+    def _store_probe(self, wb: RequestBatch, now: int) -> np.ndarray:
+        """The residency probe of a wave's keys (its lanes on the
+        device), read back: the store path's first read-back of the
+        wave."""
+        exists = self.K.probe_exists(self.table, wb.key_hi, wb.key_lo, wb.group, now,
+                                     self.cfg.ways)
+        return exists.cpu().numpy()
+
+    def _store_readthrough(self, sf: _StoreFlush, flush, w: int, now: int, group):
+        """Before wave w's decide (table lock held; JAX
+        `_wave_readthrough`): probe the wave's keys and, for each lane
+        whose key is not live, take the freshest state known and inject
+        it so that the decide continues the counter (reference
+        algorithms.go:45-51). Freshness order:
+
+        1. a row this flush already served (the key was displaced between
+           its own waves; a row freed by RESET_REMAINING, or one whose key
+           check fails, leaves the key absent: the store's remove lands
+           at the flush's end);
+        2. the prefetch of never-seen keys;
+        3. `Store.get` under the lock (a store outage is a miss).
+
+        `group` is the wave's group column on the host. Returns None, or
+        the inject's evicted keys on the device and the injected keys,
+        for `_store_gather`'s read-back and events."""
+        exists = self._store_probe(flush.wave_batch(w), now)
+        sf.readbacks += 1
+        rows = []
+        for lane, (req, hi, lo) in sf.lane_reqs[w].items():
+            if exists[lane]:
+                continue
+            if sf.resolver is not None:
+                req = sf.resolver(req)  # columnar: requests only for misses
+            snap = None
+            sv = sf.served.get((hi, lo))
+            if sv is not None:
+                pw, plane = sv
+                r = sf.rows[pw]
+                if r[_R["used"], plane] and r[_R["key_hi"], plane] == hi \
+                        and r[_R["key_lo"], plane] == lo:
+                    snap = _snapshot_from_row(r, plane, req.hash_key())
+            else:
+                snap = sf.prefetched.get((hi, lo))
+                if snap is None:
+                    try:
+                        snap = self.store.get(req)
+                    except Exception:
+                        snap = None  # a store outage is a cache miss
+            if snap is not None:
+                rows.append((lane, snap, hi, lo))
+        if not rows:
+            return None
+        ib = InjectBatch.zeros(len(rows))
+        for j, (lane, sn, hi, lo) in enumerate(rows):
+            ib.key_hi[j] = hi
+            ib.key_lo[j] = lo
+            ib.group[j] = int(group[lane])
+            ib.algo[j] = int(sn.algorithm)
+            ib.status[j] = int(sn.status)
+            ib.limit[j] = sn.limit
+            ib.duration[j] = sn.duration
+            ib.remaining[j] = sn.remaining
+            ib.stamp[j] = sn.stamp
+            ib.expire_at[j] = sn.expire_at
+            ib.invalid_at[j] = int(getattr(sn, "invalid_at", 0))
+            ib.burst[j] = sn.burst
+            ib.active[j] = True
+        sf.injected += len(rows)
+        ehi, elo = self._store_inject(ib, now)
+        return ehi, elo, [(hi, lo) for _lane, _sn, hi, lo in rows]
+
+    def _store_inject(self, ib: InjectBatch, now: int):
+        """A read-through's rows (host columns) into the table: one copy
+        to the device, then `inject`. Returns its evicted keys, on the
+        device."""
+        self.table, ehi, elo = self.K.inject(self.table, ib.to_device(self.device), now,
+                                             self.cfg.ways)
+        return ehi, elo
+
+    def _store_gather(self, sf: _StoreFlush, flush, w: int, inj) -> None:
+        """After wave w's decide: `gather_rows(table, out.slot)` (the rows
+        it wrote, as the wide struct), its evicted keys and freed flags,
+        and the evicted keys of its inject, read back in ONE copy (the
+        wave's second read-back); then the wave's events in the JAX
+        engine's order (the inject's displaced and inserted keys, the
+        decide's displaced keys, the wave's keys) and where each of its
+        keys was served."""
+        off, b = flush.spans[w]
+        s = slice(off, off + b)
+        rows = self.K.gather_rows(self.table, flush.slot[s])
+        cols = [getattr(rows, f).to(torch.int64) for f in _WB_FIELDS]
+        cols += [flush.evicted_hi[s], flush.evicted_lo[s],
+                 flush.freed(self.topo.freed_dtype)[s].to(torch.int64)]
+        if inj is not None:
+            cols += [inj[0], inj[1]]
+        flat = torch.cat(cols).cpu().numpy()
+        sf.readbacks += 1
+        host = flat[:_N_ROWS * b].reshape(_N_ROWS, b)
+        ev = sf.events
+        if inj is not None:
+            ehi, elo = flat[_N_ROWS * b:].reshape(2, -1)
+            for j in np.nonzero((ehi != 0) | (elo != 0))[0].tolist():
+                ev.append(("d", (int(ehi[j]), int(elo[j]))))
+            ev.extend(("i", k) for k in inj[2])
+        ehi, elo = host[_R["evicted_hi"]], host[_R["evicted_lo"]]
+        for j in np.nonzero((ehi != 0) | (elo != 0))[0].tolist():
+            ev.append(("d", (int(ehi[j]), int(elo[j]))))
+        for lane, (_req, hi, lo) in sf.lane_reqs[w].items():
+            sf.served[(hi, lo)] = (w, lane)
+            ev.append(("i", (hi, lo)))
+        sf.offsets.append(off)  # the blocks tile the flush's lanes, as its spans
+        sf.rows.append(host)
+
+    def _drop_displaced_strings(self, events) -> None:
+        """Key-dictionary hygiene (store path): a key whose LAST event of
+        the flush was a displacement has left the table; dropping its
+        string makes its next request prefetch the store's state outside
+        the lock. A key inserted again after its displacement keeps its
+        string. Read-through never depends on this: the probe is ground
+        truth."""
+        if not events:
+            return
+        last: Dict[Tuple[int, int], str] = {}
+        for ev, k in events:
+            last[k] = ev
+        dead = [k for k, ev in last.items() if ev == "d"]
+        if dead:
+            with self._keys_lock:
+                for k in dead:
+                    self._key_strings.pop(k, None)
+
+    def _store_write_behind_core(self, seq, sf: _StoreFlush) -> None:
+        """Write-behind (JAX `_store_write_behind_core`): `seq` yields
+        (hash_key, wave, lane, hi, lo) in REQUEST order, `sf.rows` are
+        the flush's per-wave host blocks, gathered right after each wave,
+        so each lane sees the state its own decide produced even where a
+        later wave displaced or freed the slot.
+
+        The last operation per key wins: a token-bucket RESET_REMAINING
+        free removes the stored entry (reference algorithms.go:78-90), a
+        later hit stores the new state; a lane whose gathered row is not
+        its key's (unused, or another key's) leaves the store as it was.
+        A failed store call is logged, never raised: write-behind runs
+        after the table committed, and the reference's OnChange has no
+        error return (store.go:49-65)."""
+        entries = list(seq)
+        if not entries:
+            return
+        w_arr = np.fromiter((e[1] for e in entries), np.int64, len(entries))
+        l_arr = np.fromiter((e[2] for e in entries), np.int64, len(entries))
+        col = np.asarray(sf.offsets, np.int64)[w_arr] + l_arr
+        v = np.concatenate(sf.rows, axis=1)[:, col].tolist()  # (_N_ROWS, n) lists
+        used, k_hi, k_lo, freed = (v[_R[f]] for f in ("used", "key_hi", "key_lo", "freed"))
+        state = [v[_R[c]] for _f, c in SNAPSHOT_COLUMNS]
+        ops: Dict[str, Optional[ItemSnapshot]] = {}
+        for i, (key, _w, _lane, hi, lo) in enumerate(entries):
+            if freed[i]:
+                ops[key] = None
+                continue
+            if not used[i] or k_hi[i] != hi or k_lo[i] != lo:
+                continue
+            ops[key] = ItemSnapshot(key, *(col[i] for col in state))
+        changes = [sn for sn in ops.values() if sn is not None]
+        try:
+            for key, sn in ops.items():
+                if sn is None:
+                    self.store.remove(key)
+            if changes:
+                self.store.on_change(changes)
+        except Exception:
+            logging.getLogger(__name__).exception(
+                "store write-behind failed (%d changes dropped)", len(changes))
+
+    def warm_store_path(self) -> None:
+        """Load the store path's ops at engine start, where JAX compiles
+        them, so that the first flush does not pay for it under the lock:
+        one probe, inject and gather of one padding lane (inactive, at
+        slot N), which change nothing. The decide's kernels were built
+        when the engine was made."""
+        z = torch.zeros(1, dtype=torch.int64, device=self.device)
+        with self._lock, self.topo.dispatch_guard(), self._on_stream():
+            now = self.now_fn()
+            self.K.probe_exists(self.table, z, z, z.to(torch.int32), now, self.cfg.ways)
+            self._store_inject(InjectBatch.zeros(1), now)
+            self.K.gather_rows(self.table, z + self.table.num_slots).used.cpu()
+
+    def inject_snapshots(self, items: Sequence[ItemSnapshot]) -> None:
+        """Write raw per-key state rows into the table, unconditionally
+        (the Loader restore and the LWW merge; reference
+        workers.go:537-580). Waves keep each group's items in arrival
+        order, as the JAX engine's first-fit assembler does, so the table
+        ends the same: an item's wave is its occurrence rank within its
+        group; each rank's items, sorted by group (few pages per wave on
+        a paged table), are cut into waves of `batch_size` lanes. The
+        columns reach the device in one copy each; then one inject per
+        wave, after `ensure_resident` of its pages."""
+        if not items:
+            return
+        now = self.now_fn()
+        cfg = self.cfg
+        n = len(items)
+        hi, lo, grp = key_hash128_batch([it.key for it in items], cfg.num_groups)
+        order = np.argsort(grp, kind="stable")
+        sg = grp[order]
+        rank = np.empty(n, np.int64)
+        rank[order] = np.arange(n) - np.searchsorted(sg, sg, side="left")
+        seq = np.lexsort((grp, rank))  # by rank, then group
+        state = np.array(
+            [(it.algorithm, it.status, it.limit, it.duration, it.remaining, it.stamp,
+              it.expire_at, getattr(it, "invalid_at", 0), it.burst) for it in items],
+            dtype=np.int64,
+        ).reshape(n, 9)[seq]
+        cols = dict(key_hi=hi[seq], key_lo=lo[seq], group=grp[seq].astype(np.int32))
+        for j, (_f, c) in enumerate(SNAPSHOT_COLUMNS):
+            cols[c] = state[:, j]
+        r_sorted = rank[seq]
+        bounds = np.flatnonzero(np.diff(r_sorted)) + 1
+        waves = []
+        for a, z in zip(np.concatenate([[0], bounds]).tolist(),
+                        np.concatenate([bounds, [n]]).tolist()):
+            waves.extend((o, min(o + cfg.batch_size, z)) for o in range(a, z, cfg.batch_size))
+        cols["active"] = np.ones(n, np.bool_)
+        host = InjectBatch(**{f: cols[f].astype(dt) for f, dt in INJECT_DTYPES.items()})
+        with self._keys_lock:
+            self._key_strings.update(zip(zip(hi.tolist(), lo.tolist()), (it.key for it in items)))
+        pager = self._pager
+        with self._lock, self.topo.dispatch_guard(), self._on_stream():
+            dev = host.to_device(self.device)
+            for a, z in waves:
+                if pager is not None:
+                    self.table = pager.ensure_resident(
+                        self.table, pager.touched_pages(host.group[a:z]))
+                self.table, _ehi, _elo = self.K.inject(
+                    self.table, InjectBatch(*(c[a:z] for c in dev)), now, cfg.ways)
+        with self._stats_lock:
+            self._stats["inject_waves"] += len(waves)
+            self._stats["injected_rows"] += n
 
     # -- the columnar path (the serving edge, service/fastpath.py) -------------
 
@@ -1168,8 +1542,20 @@ class MeshEngine:
 
         The never-seen keys' strings join the key dictionary (the object
         path records every key's), so snapshots carry the same
-        `key_strings` whichever path served."""
+        `key_strings` whichever path served.
+
+        With a Store the table's waves take the store path (JAX
+        `check_columns`): every key's string is decoded once, never-seen
+        keys are prefetched outside the lock with requests built from
+        the columns, requests are built lazily for the waves' misses
+        only (`wire.req_from_columns`), and write-behind runs from the
+        per-wave rows before this returns. On an engine with a replica
+        tier the JAX package serves columns through
+        `_check_columns_replica_split`, whose waves run the probe and
+        the gather with no lane to read through or persist: this engine
+        does the same (ROADMAP.md §3)."""
         cfg = self.cfg
+        store = self.store
         if cols.n == 0:
             return None
         if now is None:
@@ -1218,28 +1604,54 @@ class MeshEngine:
                 return None
             tiers.append(("r", g, asm))
 
-        keys_l = list(zip(hi.tolist(), lo.tolist()))
-        with self._keys_lock:
-            miss = [(j, k) for j, k in enumerate(keys_l) if k not in self._key_strings]
-        if miss:
-            decoded = [
-                (k, orig_cols.key_string(int(sel_map[j]) if sel_map is not None else j))
-                for j, k in miss
-            ]
-            with self._keys_lock:
-                self._key_strings.update(decoded)
+        hi_l, lo_l = hi.tolist(), lo.tolist()
+        keys_l = list(zip(hi_l, lo_l))
+        sf = strs = None
+        if store is not None and self._rtier is None:
+            if sel_map is None:
+                strs = cols.key_strings_all()
+            else:
+                strs = [orig_cols.key_string(int(j)) for j in sel_map]
+
+            def req_of(j: int) -> RateLimitReq:
+                return wire.req_from_columns(
+                    orig_cols, int(sel_map[j]) if sel_map is not None else j)
+
+            prefetched = self._store_prefetch(
+                list(enumerate(keys_l)), resolve=req_of, record=zip(keys_l, strs))
             self._maybe_prune_key_strings()
+            _wb, wave, lane, _ix, W, _B = tiers[0][2]
+            wave_l, lane_l = wave.tolist(), lane.tolist()
+            sf = _StoreFlush([{} for _ in range(W)], prefetched, resolver=req_of)
+            for j, (w, ln) in enumerate(zip(wave_l, lane_l)):
+                sf.lane_reqs[w][ln] = (j, hi_l[j], lo_l[j])
+        else:
+            with self._keys_lock:
+                miss = [(j, k) for j, k in enumerate(keys_l) if k not in self._key_strings]
+            if miss:
+                decoded = [
+                    (k, orig_cols.key_string(int(sel_map[j]) if sel_map is not None else j))
+                    for j, k in miss
+                ]
+                with self._keys_lock:
+                    self._key_strings.update(decoded)
+                self._maybe_prune_key_strings()
+            if store is not None and tiers[0][0] == "s":
+                sf = _StoreFlush([{} for _ in range(tiers[0][2][4])], {})
 
         batches = {"s": (None, []), "r": (None, [])}
         for tier, _pos, (wb, _wave, _lane, _ix, W, B) in tiers:
             batches[tier] = (RequestBatch(*(c.reshape(-1) for c in wb)),
                              [(w * B, B) for w in range(W)])
         (hb, spans), (rhb, rspans) = batches["s"], batches["r"]
-        flush, rflush, launches = self._execute_waves(hb, spans, now, rhb, rspans)
+        flush, rflush, launches = self._execute_waves(hb, spans, now, rhb, rspans, sf)
         hosts = {"s": flush.host() if flush is not None else [],
                  "r": rflush.host() if rflush is not None else []}
         self._count_flush("columnar_flushes", hosts["s"] + hosts["r"], len(spans) + len(rspans),
                           launches, cols.n, len(rspans))
+        if strs is not None:
+            self._store_write_behind_core(zip(strs, wave_l, lane_l, hi_l, lo_l), sf)
+            self._drop_displaced_strings(sf.events)
         out = None
         for tier, pos, asm in tiers:
             stacked = _stack_wave_outputs(hosts[tier])
@@ -1352,6 +1764,11 @@ class MeshEngine:
                     pager.page_map[lp] = pp
                 else:
                     pager.host_tier[lp] = page
+
+
+def _snapshot_from_row(r: np.ndarray, lane: int, key: str) -> ItemSnapshot:
+    """ItemSnapshot from one lane of a wave's host block."""
+    return ItemSnapshot(key, *(int(r[_R[c], lane]) for _f, c in SNAPSHOT_COLUMNS))
 
 
 class DeviceEngine(MeshEngine):

@@ -147,6 +147,8 @@ class SingleChipTopology:
     # the census's name for the tier the table is (engine.table_census)
     primary_tier = "device"
     thread_name = "gubernator-torch-pump"
+    # the dtype of the decide's `freed` column (the wave kernel's)
+    freed_dtype = torch.bool
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -180,6 +182,8 @@ class IciMeshTopology:
 
     primary_tier = "sharded"
     thread_name = "gubernator-torch-ici"
+    # the sharded kernel's `freed` is the psum's type
+    freed_dtype = torch.int32
 
     def __init__(self, devices=None):
         self.mesh = pmesh.make_mesh(devices)

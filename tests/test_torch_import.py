@@ -85,14 +85,17 @@ def test_source_imports_no_jax_or_reference_package(path):
     "gubernator_tpu_torch.ops.admission",
     "gubernator_tpu_torch.ops.inject",
     "gubernator_tpu_torch.parallel.ici",
+    "gubernator_tpu_torch.store",
+    "gubernator_tpu_torch.store.store",
 ])
 def test_slice_modules_are_checked(module):
     """The narrow layout, the paged table, the pager, the bench, the
     scan and sharded wrappers, the mesh, the topologies, the mesh
     engine, the kernel ablation tool, the wire path, the columnar edge,
     the bytes serving core, the pipelined engine, the table scans, the
-    inject and the GLOBAL replica tier are among the modules imported
-    above with jax and gubernator_tpu blocked."""
+    inject, the GLOBAL replica tier and the Store and Loader seams are
+    among the modules imported above with jax and gubernator_tpu
+    blocked."""
     assert module in _port_modules()
 
 
