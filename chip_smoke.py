@@ -73,7 +73,10 @@ Phases, for each size:
 4. scan_times: the scan's device ms per scan and per step (CUDA events,
    L2 flushed, device held busy while the host enqueues; and
    torch.profiler's kernel time), a profiler trace that shows one scan
-   to be one device operation (the kernel: no memset, no other kernel),
+   to be one device operation (the kernel: no memset, no other kernel;
+   traced in a fresh process of this script, `--scan-op-counts`, run
+   before the sizes: in a long run CUPTI has been seen to lose scan
+   records, once as early as the 10M size's second scan),
    the same 32 waves as 32 wave-kernel launches (events, and the
    profiler's summed kernel time), the plain version's ms and the byte
    bound summed over the steps. Paged scans are timed on groups of
@@ -132,6 +135,10 @@ Phases, for each size:
    ms longer on the engine's stream, so the device is the bottleneck;
    answers equal, and on a flat table two flushes in flight (a paged
    table's demote waits on the stream inside dispatch: reported only).
+   Every run also prints the engine's stage trace (`stages`: the
+   stage_duration histogram's count, p50, p99 and mean per stage:
+   intake, assemble, dispatch, inflight_wait, device_sync, resolve) and
+   the median of `pipeline_overlap`.
    Phases 5 and 8 run at the engines' default depth, 2.
 11. census: after each serving run of phases 5 and 8, on that live
    engine (its background demoter stopped first, so the table holds
@@ -259,6 +266,42 @@ bound. The kernels line gives
 rows 1-3b and 5 their launches on the store path
 (`store_path_launches`).
 
+Then the observability core (metrics.py, the engine's telemetry, the
+watchdog, device memory), with no profiler, after every exact count:
+
+22. metrics, per size: the main path's calls as objects, then as bytes
+   at the default max_waves (32), on each engine of the size
+   (DeviceEngine and IciEngine of 8 shards, fused and narrow), each
+   with a `Metrics` wired (`wire_engine_telemetry`, `V1Service(...,
+   metrics=)`) and a started `Watchdog`, then `render()`: every line of
+   the exposition parses; the cache, over-limit, command and
+   unexpired-eviction counters equal the engine's stats() and a CPU
+   DeviceEngine's (fused, paged as the size's engines are) on the same
+   calls and clock, whose answers the card's equal; the flush_waves
+   count equals the flushes, each stage's count the flushes (or bulks)
+   that pass it; the flush durations sum to no more than the calls'
+   wall time; `device_memory()` reads the caching allocator
+   (`allocated_bytes.all.current`) and its slot_table equals the
+   table's tensors' bytes, no more than in use; the pump's, the
+   completion thread's, the sync thread's (mesh) and the demoter's
+   (paged) beats arrive and no serving loop stalls; one launch per
+   wave. Per engine decisions/s (objects, bytes), the resolve stage's
+   host ms per flush (mean, p50), the stage trace, the render's
+   seconds and the garbage collections during the calls.
+23. telemetry_ab, at 1M: the hot-key sketch (the telemetry's per-item
+   part) on and off (`hotkeys_k` 128, 0, 0, 128) on a fresh
+   DeviceEngine (fused) per turn, the main path's calls as objects:
+   answers equal to the CPU engine's; decisions/s, the resolve stage
+   and the garbage collections per turn.
+24. latency, at 1M: the first p99 GetRateLimits. 2,000 calls of 10
+   Zipf(1.1) items (the main path's mix) from 16 concurrent asyncio
+   callers, as objects and as bytes, each on a fresh DeviceEngine and
+   IciEngine (fused, max_waves 32, the default depth) with a Metrics:
+   per call the host clock's p50, p99, max and mean, decisions/s, the
+   stage trace (p50 and p99 per stage), pipeline_overlap's median and
+   the garbage collections; every item answered without an error, one
+   launch per wave.
+
 Then a summary line with the wall time, the card's name and power limit
 as nvidia-smi prints them, the kernel table line, and the last line
 `{"ok": true, "device": {"platform": "gpu", ...}}`. Any failure raises
@@ -272,6 +315,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import dataclasses
+import gc
 import json
 import operator
 import os
@@ -293,7 +337,7 @@ if not torch.cuda.is_available():
 
 from gubernator_tpu_torch import bench  # noqa: E402
 from gubernator_tpu_torch.api.keys import key_hash128_batch  # noqa: E402
-from gubernator_tpu_torch.api.types import RateLimitReq, RateLimitResp  # noqa: E402
+from gubernator_tpu_torch.api.types import MAX_BATCH_SIZE, RateLimitReq, RateLimitResp  # noqa: E402
 from gubernator_tpu_torch.ops import _build, cuda_decide, fused, narrow  # noqa: E402
 from gubernator_tpu_torch.ops.admission import admission_oracle  # noqa: E402
 from gubernator_tpu_torch.ops.census import census_oracle  # noqa: E402
@@ -316,8 +360,10 @@ from gubernator_tpu_torch.ops.layout import (  # noqa: E402
 from gubernator_tpu_torch.ops.paged import PagedTable  # noqa: E402
 from gubernator_tpu_torch.parallel import ici  # noqa: E402
 from gubernator_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from gubernator_tpu_torch.metrics import Metrics, wire_engine_telemetry  # noqa: E402
 from gubernator_tpu_torch.runtime.engine import DeviceEngine, EngineConfig  # noqa: E402
 from gubernator_tpu_torch.runtime.ici_engine import IciEngine, IciEngineConfig  # noqa: E402
+from gubernator_tpu_torch.runtime.watchdog import Watchdog  # noqa: E402
 from gubernator_tpu_torch import wire  # noqa: E402
 from gubernator_tpu_torch.store import (  # noqa: E402
     ItemSnapshot,
@@ -904,10 +950,11 @@ def _median_ms(fn, reps, flush, hold_cycles=0, setup=None):
 
 
 # Fills of a marker tensor around the operations a trace counts: on the
-# card the profiler has been seen to miss up to four device operations
-# at the start of a trace, so the fills before them are the ones it may
-# miss (and the fills after them, any missed at its end)
-MARKER_FILLS = 8
+# card the profiler has been seen to miss up to six of them in a trace
+# (NVIDIA H100 80GB HBM3), so the fills before the counted operations
+# are the ones it may miss at its start (and the fills after them, any
+# missed at its end)
+MARKER_FILLS = 16
 
 
 def _device_ops(fn, reps):
@@ -1320,11 +1367,68 @@ def scan_bound_ms(hosts, layout, residents, paged, hits):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_scan_times(rng, size, layout, page_map, tables, card):
+def _check_scan_ops(name, ops):
+    """One scan, one device operation: among the marker fills the trace
+    of SCAN_REPS scans holds exactly SCAN_REPS operations, each the scan
+    kernel. Returns (scan kernels, marker fills)."""
+    scans = [o for o in ops if "decide_scan_kernel" in o]
+    others = [o for o in ops if "decide_scan_kernel" not in o]
+    if (len(scans) != SCAN_REPS or len(others) > 2 * MARKER_FILLS
+            or any("FillFunctor" not in o for o in others)):
+        raise AssertionError(f"{name}: {SCAN_REPS} scans, the profiler saw {len(scans)} scan "
+                             f"kernels and {others}")
+    return scans, others
+
+
+def scan_op_names(seed: int) -> dict:
+    """The device operations that torch.profiler records over SCAN_REPS
+    scans of every scan configuration, at the timed scans' shape (each
+    size's image and page map, `scan_steps` over resident pages), as
+    `_device_ops` names them: run by main in a fresh process of this
+    script (`--scan-op-counts`) before any other work on the card, since
+    in a long run CUPTI has been seen to lose scan records. A first,
+    empty session starts CUPTI. {scan kernel name: names}."""
+    rng = np.random.default_rng(seed)
+    _device_ops(lambda: None, 0)
+    out = {}
+    for size in SIZES:
+        image = live_image(rng, size)
+        pm = scrambled_page_map(rng, size) if size.page_groups else None
+        for layout, paged in size.configs:
+            pmap = pm if paged else None
+            kt = kernel_tables(image, size, layout, pmap)[0]
+            hosts, nows = scan_steps(rng, size, NOW + 60_000, pmap)
+            db = batch_to_device(stack_batches(hosts), DEVICE)
+            nows_d = torch.from_numpy(nows).to(DEVICE)
+
+            def scan():
+                run_scan(kt, db, nows_d, layout, size.page_groups)
+
+            for _ in range(3):
+                scan()
+            out[cuda_decide.config_name(layout, paged, scan=True)] = _device_ops(scan, SCAN_REPS)
+            del kt, db, nows_d
+            free_device()
+        del image
+    return out
+
+
+def scan_op_names_child(seed: int) -> dict:
+    """`scan_op_names` in a fresh process of this script."""
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--scan-op-counts", "--seed", str(seed)],
+        capture_output=True, text=True, timeout=600,
+    )
+    if child.returncode:
+        raise AssertionError(f"--scan-op-counts exited {child.returncode}: {child.stderr[-4000:]}")
+    return json.loads(child.stdout.strip().splitlines()[-1])
+
+
+def phase_scan_times(rng, size, layout, page_map, tables, card, op_names):
     """Times of one scan of SCAN_T x SCAN_B at the bench's shape, over
     the tables of the scan_kernel phase; paged: groups on resident pages
     only. The bound of each timed scan counts the live matches its steps
-    found."""
+    found. `op_names`: `scan_op_names`' traces, checked here."""
     paged = page_map is not None
     name = cuda_decide.config_name(layout, paged, scan=True)
     gpp = size.page_groups
@@ -1354,15 +1458,7 @@ def phase_scan_times(rng, size, layout, page_map, tables, card):
     s_ms = _median_ms(scan, SCAN_REPS, flush, hold_cycles=2_000_000)
     s_dev = _profiled_device_ms(lambda: run_scan(kt, db, nows_d, layout, gpp), SCAN_REPS,
                                 "decide_scan_kernel")
-    # one scan, one device operation: among the marker fills the trace
-    # holds exactly SCAN_REPS operations, each the scan kernel
-    ops = _device_ops(lambda: run_scan(kt, db, nows_d, layout, gpp), SCAN_REPS)
-    scans = [o for o in ops if "decide_scan_kernel" in o]
-    others = [o for o in ops if "decide_scan_kernel" not in o]
-    if (len(scans) != SCAN_REPS or len(others) > 2 * MARKER_FILLS
-            or any("FillFunctor" not in o for o in others)):
-        raise AssertionError(f"{name}: {SCAN_REPS} scans, the profiler saw {len(scans)} scan "
-                             f"kernels and {others}")
+    scans, others = _check_scan_ops(name, op_names[name])
     # the yardstick: the same steps as SCAN_T wave launches, events
     # around all of them (host-paced), and the kernels' device time
     w_ms = _median_ms(waves, 5, flush)
@@ -1485,25 +1581,26 @@ def smoke_calls(rng, n_keys: int):
     items; the Zipf head repeats keys inside a call, so flushes take
     several waves."""
     zipf = _Zipf(n_keys)
-    calls = []
-    for _ in range(CALLS):
-        ks = zipf.draw(rng, ITEMS)
-        u = rng.random(ITEMS)
-        items = []
-        for i in range(ITEMS):
-            behavior = 8 if u[i] < 0.05 else (32 if u[i] < 0.10 else 0)
-            duration = int(rng.integers(1000, 60_001))
-            if rng.random() < 0.01:
-                behavior |= 4
-                duration = int(rng.choice([0, 1]))  # minutes, hours
-            items.append(dict(
-                name="smoke", unique_key=f"acct:{int(ks[i])}",
-                algorithm=int(rng.random() < 0.3), behavior=behavior,
-                duration=duration, limit=int(rng.integers(10, 1001)),
-                hits=int(rng.integers(1, 6)),
-            ))
-        calls.append(items)
-    return calls
+    return [_smoke_items(rng, zipf.draw(rng, ITEMS)) for _ in range(CALLS)]
+
+
+def _smoke_items(rng, ks):
+    """One call's item dicts for the key ranks `ks` (smoke_calls' mix)."""
+    u = rng.random(len(ks))
+    items = []
+    for i in range(len(ks)):
+        behavior = 8 if u[i] < 0.05 else (32 if u[i] < 0.10 else 0)
+        duration = int(rng.integers(1000, 60_001))
+        if rng.random() < 0.01:
+            behavior |= 4
+            duration = int(rng.choice([0, 1]))  # minutes, hours
+        items.append(dict(
+            name="smoke", unique_key=f"acct:{int(ks[i])}",
+            algorithm=int(rng.random() < 0.3), behavior=behavior,
+            duration=duration, limit=int(rng.integers(10, 1001)),
+            hits=int(rng.integers(1, 6)),
+        ))
+    return items
 
 
 class _PagerSpans:
@@ -1787,12 +1884,14 @@ def _snap_diff(a, b) -> list:
     return diff
 
 
-def _edge_engine(size, layout, paged, mesh, **kw):
+def _edge_engine(size, layout, paged, mesh, on=None, **kw):
+    """An engine of the size on the card (or on `on`)."""
+    on = DEVICE if on is None else on
     pcfg = dict(page_groups=size.page_groups, page_budget=size.page_budget) if paged else {}
     base = dict(num_groups=size.num_groups, ways=WAYS, batch_size=B, layout=layout, **pcfg, **kw)
     if mesh:
-        return IciEngine(IciEngineConfig(devices=[DEVICE] * MESH_SHARDS, **base))
-    return DeviceEngine(EngineConfig(device=DEVICE.type, **base))
+        return IciEngine(IciEngineConfig(devices=[on] * MESH_SHARDS, **base))
+    return DeviceEngine(EngineConfig(device=torch.device(on).type, **base))
 
 
 def _edge_configs(size):
@@ -2037,6 +2136,8 @@ def phase_pipeline(size: Size, reference):
                        "flushes": st["flushes"] - st0["flushes"],
                        "waves": st["waves"] - st0["waves"], "launches": launches[name],
                        "inflight_max": st["inflight_max"], **stages.summary(),
+                       "stages": stage_stats(eng.metrics),
+                       "pipeline_overlap_p50": eng.metrics.pipeline_overlap.summary()["p50"],
                        "decisions_per_s": decisions / secs, "seconds": secs}
                 if paged:
                     res.update({k: st[k] - st0[k] for k in ("promotes", "demotes", "binds")})
@@ -3676,6 +3777,523 @@ def phase_store_ops(rng, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the observability core (metrics registry, engine telemetry, watchdog,
+# device memory) over the serving paths, and the p99 GetRateLimits latency
+
+# `name{labels} value`: one sample line of the Prometheus text format
+_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(?:[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*",?)*\})? (\S+)$')
+WATCHDOG_STALL_MS = 5000.0
+_STAGES = ("intake", "assemble", "dispatch", "inflight_wait", "device_sync", "resolve")
+
+
+def parse_exposition(text: str) -> dict:
+    """{sample name with its labels: value} of a Prometheus text body;
+    raises on a line that is neither a HELP or TYPE comment nor a sample
+    whose value parses as a float."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(("# HELP ", "# TYPE ")):
+            continue
+        m = _SAMPLE.match(line)
+        if m is None:
+            raise AssertionError(f"an exposition line does not parse: {line!r}")
+        out[m.group(1) + (m.group(2) or "")] = float(m.group(3))
+    return out
+
+
+def stage_stats(em) -> dict:
+    """Per stage of the engine's stage_duration histogram: observations,
+    the p50 and p99 in ms (interpolated in its power-of-two buckets) and
+    the exact mean in ms."""
+    out = {}
+    for (stage,), s in sorted(em.stage_duration.label_summaries().items()):
+        n = s["count"]
+        out[stage] = {"count": n, "p50_ms": s["p50"] * 1e3, "p99_ms": s["p99"] * 1e3,
+                      "mean_ms": s["sum"] / n * 1e3 if n else None}
+    return out
+
+
+def _table_bytes(t) -> int:
+    """Bytes of the slot rows an engine's table holds (its tensors, the
+    page map left out)."""
+    if isinstance(t, torch.Tensor):
+        return t.numel() * t.element_size()
+    if hasattr(t, "_fields"):
+        return sum(_table_bytes(getattr(t, f)) for f in t._fields if f != "page_map")
+    return 0
+
+
+def _allocator_in_use(eng) -> tuple:
+    """(device_memory(), allocated_bytes.all.current) read together: the
+    two agree on one of three tries unless another thread keeps
+    allocating between the reads."""
+    for _ in range(3):
+        before = torch.cuda.memory_stats(DEVICE)["allocated_bytes.all.current"]
+        d = eng.device_memory()
+        after = torch.cuda.memory_stats(DEVICE)["allocated_bytes.all.current"]
+        if before == after == d["bytes_in_use"]:
+            break
+    return d, after
+
+
+def _count_bulks(eng) -> list:
+    """Wrap this engine's check_bulk: the returned list's length is the
+    number of bulks enqueued (the intake stage's observations)."""
+    seen, bulk = [], eng.check_bulk
+
+    def counted(reqs):
+        seen.append(len(reqs))
+        return bulk(reqs)
+
+    eng.check_bulk = counted
+    return seen
+
+
+class _GcPauses:
+    """The interpreter's garbage collections while it is entered:
+    count and host ms per generation (gc.callbacks), the pauses a call
+    that happens to allocate then waits out."""
+
+    def __init__(self):
+        self.ms = {0: [], 1: [], 2: []}
+        self._t0 = None
+
+    def _cb(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms[info["generation"]].append((time.perf_counter() - self._t0) * 1e3)
+            self._t0 = None
+
+    def __enter__(self):
+        gc.callbacks.append(self._cb)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._cb)
+
+    def summary(self) -> dict:
+        return {f"gen{g}": {"count": len(v), "total_ms": sum(v), "max_ms": max(v, default=0.0)}
+                for g, v in self.ms.items()}
+
+
+def _wait_beats(wd, want, timeout_s) -> set:
+    deadline = time.monotonic() + timeout_s
+    while not want <= set(wd.beats()) and time.monotonic() < deadline:
+        time.sleep(0.02)
+    return set(wd.beats())
+
+
+def phase_metrics(size: Size, reference, card: str):
+    """The main path's calls, as objects and then as bytes at the
+    default max_waves (32), on each engine of the size (DeviceEngine and
+    IciEngine of 8 shards, fused and narrow), each with a Metrics wired
+    (`wire_engine_telemetry`, a V1Service on it) and a started Watchdog;
+    then `render()`. Checks: every line of the exposition parses; the
+    cache, over-limit, command and unexpired-eviction counters equal the
+    engine's stats() and a CPU engine's of the same kind and paging on
+    the same calls and clock (whose answers the card's equal); the
+    flush_waves count equals the flushes; each stage's count equals the
+    flushes (or bulks) that pass it; the flush durations sum to no more
+    than the calls' wall time; device_memory() reads the caching
+    allocator, its slot_table equals the table's bytes and fits in what
+    is in use; the pump's, the completion thread's, the sync thread's
+    (mesh) and the demoter's (paged) beats arrive and no serving loop
+    stalls; one launch per wave. Prints decisions/s, the host ms the
+    telemetry adds per flush (the resolve stage), the stage trace and
+    the garbage collections during the calls. The CPU engine is a
+    DeviceEngine (fused) paged as the size's engines are: the counters
+    are decisions' sums, which the shard count does not change."""
+    snap, calls, _want, _csnap = reference
+    bodies = [encode_request(items) for items in calls]
+    decisions = sum(len(c) for c in calls)
+    paged = size.configs[0][1]
+    results = {}
+    with _clock.freeze(NOW) as clk:
+        ceng = _edge_engine(size, "fused", paged, False, on="cpu", page_demote_interval_s=0.0)
+        try:
+            ceng.restore(snap)
+            csvc = V1Service(ceng)
+            obj, _, _ = _serve(csvc, calls, clk)
+            byt, _, _ = _serve_bytes(csvc, bodies, clk)
+            em = ceng.metrics
+            cpu = (obj, byt, dict(hit=em.cache_hits, miss=em.cache_misses,
+                                  over_limit=em.over_limit, commands=em.requests,
+                                  unexpired=em.unexpired_evictions))
+        finally:
+            ceng.close()
+        for name, layout, p, mesh in _edge_configs(size):
+            eng = _edge_engine(size, layout, p, mesh)
+            m = Metrics()
+            wd = Watchdog(stall_ms=WATCHDOG_STALL_MS)
+            try:
+                eng.restore(snap)
+                wire_engine_telemetry(m, eng)
+                svc = V1Service(eng, metrics=m)
+                bulks = _count_bulks(eng)
+                wd.start()
+                eng.watchdog = wd
+                sync()
+                cuda_decide.reset_launches()
+                with _GcPauses() as gcp:
+                    got, secs_obj, _ = _serve(svc, calls, clk)
+                    gotb, secs_bytes, columnar = _serve_bytes(svc, bodies, clk)
+                launches = dict(cuda_decide.CONFIG_LAUNCHES)
+                st = eng.stats()
+                want_beats = {"engine-pump", "engine-complete"}
+                if mesh:
+                    want_beats.add("ici-sync")
+                if p:
+                    want_beats.add("page-demoter")
+                beats = _wait_beats(wd, want_beats, eng.cfg.page_demote_interval_s + 2.0)
+                wd.check()
+                stalled = wd.serving_stalled()
+                stalled_loops = wd.stalled_loops()
+                t_r = time.perf_counter()
+                text = m.render().decode()
+                render_s = time.perf_counter() - t_r
+                mem, allocated = _allocator_in_use(eng)
+                table_bytes = _table_bytes(eng.table)
+                em = eng.metrics
+                stages = stage_stats(em)
+                overlap_p50 = em.pipeline_overlap.summary()["p50"]
+            finally:
+                wd.stop()
+                eng.close()
+            s = parse_exposition(text)
+            n_lines = len(text.splitlines())
+            del text
+            obj, byt, ref = cpu
+            flushes = st["flushes"] + st["columnar_flushes"]
+            flush_s = sum(v for k, v in s.items()
+                          if k.startswith("gubernator_engine_flush_duration_sum"))
+            counters = dict(
+                hit=s['gubernator_cache_access_count{type="hit"}'],
+                miss=s['gubernator_cache_access_count{type="miss"}'],
+                over_limit=s["gubernator_over_limit_counter"],
+                commands=s["gubernator_command_counter"],
+                unexpired=s["gubernator_unexpired_evictions_count"])
+            stats_view = dict(hit=st["cache_hits"], miss=st["cache_misses"],
+                              over_limit=st["over_limit"], commands=st["requests"],
+                              unexpired=st["unexpired_evictions"])
+            stage_counts = {k: int(s.get(f'gubernator_engine_stage_duration_count{{stage="{k}"}}', 0))
+                            for k in _STAGES}
+            want_counts = dict(intake=len(bulks), assemble=flushes, dispatch=st["flushes"],
+                               inflight_wait=st["flushes"], device_sync=flushes,
+                               resolve=st["flushes"])
+            res = {"phase": "metrics", "size": size.name, "kernel": name, "mesh": mesh,
+                   "paged": p, "calls": len(calls), "items": decisions,
+                   "exposition_lines": n_lines, "samples": len(s), "render_s": render_s,
+                   "counters": counters, "stats": stats_view, "cpu_engine": ref,
+                   "answers_mismatching_cpu": sum(a != b for gc, wc in zip(got, obj)
+                                                  for a, b in zip(gc, wc))
+                   + sum(a != b for a, b in zip(gotb, byt)),
+                   "flushes": st["flushes"], "columnar_flushes": st["columnar_flushes"],
+                   "bulks": len(bulks),
+                   "flush_waves_count": s["gubernator_engine_flush_waves_count"],
+                   "stage_counts": stage_counts, "stages": stages,
+                   "resolve_ms_mean": stages["resolve"]["mean_ms"],
+                   "resolve_ms_p50": stages["resolve"]["p50_ms"],
+                   "pipeline_overlap_p50": overlap_p50, "gc": gcp.summary(),
+                   "flush_duration_sum_s": flush_s, "calls_wall_s": secs_obj + secs_bytes,
+                   "device_memory": {k: mem[k] for k in ("source", "bytes_in_use", "bytes_limit",
+                                                         "headroom_bytes", "unattributed_bytes")},
+                   "allocator_bytes_in_use": allocated,
+                   "slot_table_bytes": mem["subsystems"]["slot_table"],
+                   "table_tensor_bytes": table_bytes,
+                   "watchdog_beats": sorted(beats), "serving_stalled": stalled,
+                   "stalled_loops": stalled_loops,
+                   "waves": st["waves"], "launches": launches[name],
+                   "other_kernel_launches": sum(launches.values()) - launches[name],
+                   "decisions_per_s_objects": decisions / secs_obj,
+                   "decisions_per_s_bytes": decisions / secs_bytes,
+                   "card": card}
+            emit(res)
+            if res["answers_mismatching_cpu"]:
+                raise AssertionError(f"{name}: metrics run answers differ from the CPU engine")
+            if not counters == stats_view == ref:
+                raise AssertionError(f"{name}: rendered counters {counters}, stats {stats_view}, "
+                                     f"CPU engine {ref}")
+            if res["flush_waves_count"] != flushes or stage_counts != want_counts:
+                raise AssertionError(f"{name}: stage counts {stage_counts}, want {want_counts}; "
+                                     f"flush_waves {res['flush_waves_count']}, flushes {flushes}")
+            if flush_s > res["calls_wall_s"]:
+                raise AssertionError(f"{name}: flush durations sum to {flush_s} s, more than "
+                                     f"the calls' {res['calls_wall_s']} s")
+            if not (mem["source"] == "device" and mem["bytes_in_use"] == allocated
+                    and table_bytes == res["slot_table_bytes"] <= mem["bytes_in_use"]):
+                raise AssertionError(f"{name}: device_memory {res['device_memory']}, allocator "
+                                     f"{allocated}, table {table_bytes}")
+            if not want_beats <= beats or stalled:
+                raise AssertionError(f"{name}: watchdog beats {sorted(beats)} (want "
+                                     f"{sorted(want_beats)}), stalled {stalled_loops}")
+            if not (launches[name] == st["waves"] > 0) or res["other_kernel_launches"]:
+                raise AssertionError(f"{name}: kernel launches do not match the waves")
+            results[(name, size.name)] = res
+            free_device()
+    return results
+
+
+TELEMETRY_TURNS = (128, 0, 0, 128)  # hotkeys_k per turn
+
+
+def phase_telemetry_ab(size: Size, reference, card: str):
+    """The hot-key sketch, the telemetry's one per-item part, on and off
+    (`hotkeys_k` 128 and 0, the JAX knob GUBER_HOTKEYS_K) in turns on a
+    fresh DeviceEngine (fused) per turn: the main path's calls as
+    objects, answers equal to the CPU engine's. Per turn decisions/s,
+    the resolve stage (mean and p50 ms per flush) and the garbage
+    collections; the rest of the telemetry is a few histogram
+    observes per flush."""
+    snap, calls, want, _csnap = reference
+    decisions = sum(len(c) for c in calls)
+    name = cuda_decide.config_name("fused", False)
+    out = []
+    with _clock.freeze(NOW) as clk:
+        for turn, k in enumerate(TELEMETRY_TURNS):
+            eng = _edge_engine(size, "fused", False, False, hotkeys_k=k)
+            try:
+                eng.restore(snap)
+                sync()
+                cuda_decide.reset_launches()
+                with _GcPauses() as gcp:
+                    got, secs, _ = _serve(V1Service(eng), calls, clk)
+                launches = dict(cuda_decide.CONFIG_LAUNCHES)
+                st = eng.stats()
+                stages = stage_stats(eng.metrics)
+                tracked = eng.metrics.hotkeys.summary()["count"]
+            finally:
+                eng.close()
+            res = {"phase": "telemetry_ab", "size": size.name, "kernel": name, "turn": turn,
+                   "hotkeys_k": k, "keys_tracked": tracked,
+                   "response_mismatches": sum(a != b for gc_, wc in zip(got, want)
+                                              for a, b in zip(gc_, wc)),
+                   "flushes": st["flushes"], "waves": st["waves"], "launches": launches[name],
+                   "resolve_ms_mean": stages["resolve"]["mean_ms"],
+                   "resolve_ms_p50": stages["resolve"]["p50_ms"], "stages": stages,
+                   "gc": gcp.summary(), "decisions_per_s": decisions / secs, "seconds": secs,
+                   "card": card}
+            emit(res)
+            if res["response_mismatches"] or launches[name] != st["waves"]:
+                raise AssertionError(f"{name}: the telemetry A/B run disagrees with the CPU engine")
+            if (tracked > 0) != (k > 0):
+                raise AssertionError(f"{name}: hotkeys_k {k} tracked {tracked} keys")
+            out.append(res)
+            free_device()
+    return out
+
+
+LAT_CALLS = 2000
+LAT_ITEMS = 10
+LAT_CALLERS = 16
+
+
+def _decode_responses(data: bytes) -> list:
+    """(status, limit, remaining, reset_time, error) of each RateLimitResp
+    in GetRateLimitsResp bytes (fields 1-5; metadata skipped)."""
+
+    def varint(buf, i):
+        v = shift = 0
+        while True:
+            b = buf[i]
+            i += 1
+            v |= (b & 0x7F) << shift
+            shift += 7
+            if b < 0x80:
+                return v, i
+
+    out, i = [], 0
+    while i < len(data):
+        tag, i = varint(data, i)
+        n, i = varint(data, i)
+        body, i, j = data[i:i + n], i + n, 0
+        r = [0, 0, 0, 0, ""]
+        while j < len(body):
+            ftag, j = varint(body, j)
+            field, wt = ftag >> 3, ftag & 7
+            if wt == 0:
+                v, j = varint(body, j)
+                r[field - 1] = v - (1 << 64) if v >= 1 << 63 else v
+            else:
+                ln, j = varint(body, j)
+                if field == 5:
+                    r[4] = body[j:j + ln].decode("utf-8")
+                j += ln
+        if tag != 0x0A:
+            raise AssertionError(f"unexpected field tag {tag} in a GetRateLimitsResp")
+        out.append(tuple(r))
+    return out
+
+
+async def _drive_callers(svc, work, objects: bool):
+    """LAT_CALLERS asyncio callers draining `work` (item lists, or their
+    bytes) through the service; returns (per-call seconds, wall seconds,
+    each call's answers in `work`'s order)."""
+    lat, answers = [], [None] * len(work)
+    it = iter(enumerate(work))
+
+    async def caller():
+        for c, item in it:
+            if objects:
+                reqs = [RateLimitReq(**kw) for kw in item]
+                t0 = time.perf_counter()
+                resp = await svc.get_rate_limits(reqs)
+                lat.append(time.perf_counter() - t0)
+                answers[c] = [(r.status, r.limit, r.remaining, r.reset_time, r.error)
+                              for r in resp]
+            else:
+                t0 = time.perf_counter()
+                data = await serve_get_rate_limits_bytes(svc, item)
+                lat.append(time.perf_counter() - t0)
+                answers[c] = _decode_responses(data)
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*(caller() for _ in range(LAT_CALLERS)))
+    return lat, time.perf_counter() - t0, answers
+
+
+def _latency_reference(size: Size, snap, work):
+    """The latency phase's work on a CPU engine (flat, fused), in call
+    order, 1,000 items a bulk: each item's answer and the indices of the
+    items whose key no other item of the work names. Such an item's
+    answer depends on no other item (its key is not in the image, and
+    it is the key's only request), so it is the same in any order the
+    concurrent callers reach the card in; the other keys' answers are
+    not."""
+    flat = [kw for items in work for kw in items]
+    keys, counts = np.unique([kw["unique_key"] for kw in flat], return_counts=True)
+    once = set(keys[counts == 1].tolist())
+    singles = [i for i, kw in enumerate(flat) if kw["unique_key"] in once]
+    want = []
+    with _clock.freeze(NOW):
+        eng = _edge_engine(size, "fused", False, False, on="cpu")
+        try:
+            eng.restore(snap)
+            svc = V1Service(eng)
+            for i in range(0, len(flat), MAX_BATCH_SIZE):
+                resp = asyncio.run(svc.get_rate_limits(
+                    [RateLimitReq(**kw) for kw in flat[i:i + MAX_BATCH_SIZE]]))
+                want += [(r.status, r.limit, r.remaining, r.reset_time, r.error) for r in resp]
+        finally:
+            eng.close()
+    return want, singles
+
+
+def phase_latency(rng, size: Size, reference, card: str):
+    """The first p99 GetRateLimits: LAT_CALLS calls of LAT_ITEMS Zipf(1.1)
+    items (the main path's mix) from LAT_CALLERS concurrent asyncio
+    callers, as objects and over bytes, each on a fresh DeviceEngine
+    (fused) and IciEngine (fused, 8 shards) at 1M, max_waves 32, the
+    default pipeline depth, with a Metrics wired. Per run: the host
+    clock's p50, p99 and max per call, decisions/s, the stage_duration
+    p50 and p99 per stage, pipeline_overlap's median; every item
+    answered without an error, one launch per wave. The answers are
+    held against a CPU engine fed the same work in call order
+    (`_latency_reference`): equal for every item whose key the work
+    names once, and for every item its limit; the OVER_LIMIT answers'
+    count equals the rendered admission decisions of status over_limit
+    and the rendered over_limit_counter{path} children's sum; the
+    engine's over_limit (the waves' over-limit lanes, as the reference's
+    counter counts them: not every OVER_LIMIT answer) equals the bare
+    over_limit_counter sample; the engine's requests, hits plus misses, the
+    rendered getratelimit_counter{calltype="local"} and the rendered
+    admission decisions all equal the items."""
+    snap = reference[0]
+    zipf = _Zipf(size.live_keys)
+    work = [_smoke_items(rng, zipf.draw(rng, LAT_ITEMS)) for _ in range(LAT_CALLS)]
+    bodies = [encode_request(items) for items in work]
+    want, singles = _latency_reference(size, snap, work)
+    results = {}
+    with _clock.freeze(NOW):
+        for mesh in (False, True):
+            name = cuda_decide.sharded_name("fused") if mesh else cuda_decide.config_name("fused", False)
+            for objects in (True, False):
+                eng = _edge_engine(size, "fused", False, mesh)
+                try:
+                    eng.restore(snap)
+                    svc = V1Service(eng, metrics=Metrics())
+                    wire_engine_telemetry(svc.metrics, eng)
+                    sync()
+                    cuda_decide.reset_launches()
+                    with _GcPauses() as gcp:
+                        lat, wall, per_call = asyncio.run(
+                            _drive_callers(svc, work if objects else bodies, objects))
+                    launches = dict(cuda_decide.CONFIG_LAUNCHES)
+                    st = eng.stats()
+                    rendered = parse_exposition(svc.metrics.render().decode())
+                    em = eng.metrics
+                    stages = stage_stats(em)
+                    overlap = em.pipeline_overlap.summary()["p50"]
+                    waves_hist = em.flush_waves.summary()
+                    width = em.batch_width.summary()
+                finally:
+                    eng.close()
+                ms = np.sort(np.asarray(lat)) * 1e3
+                items = LAT_CALLS * LAT_ITEMS
+                answers = [a for call in per_call for a in (call or ())]
+                errors = sum(bool(a[4]) for a in answers)
+                over = sum(a[0] == 1 for a in answers)
+                counts = {
+                    "over_limit_answers": over, "stats_over_limit": st["over_limit"],
+                    "rendered_over_limit": rendered["gubernator_over_limit_counter"],
+                    "stats_requests": st["requests"],
+                    "stats_hits_plus_misses": st["cache_hits"] + st["cache_misses"],
+                    "rendered_local_calls":
+                        rendered['gubernator_getratelimit_counter{calltype="local"}'],
+                    "rendered_admission_decisions": sum(
+                        v for k, v in rendered.items()
+                        if k.startswith("gubernator_admission_decisions{")),
+                    "rendered_over_limit_by_path": sum(
+                        v for k, v in rendered.items()
+                        if k.startswith("gubernator_over_limit_counter{")),
+                    "rendered_admission_over_limit": sum(
+                        v for k, v in rendered.items()
+                        if k.startswith("gubernator_admission_decisions{")
+                        and 'status="over_limit"' in k),
+                }
+                checked = {
+                    "single_key_items": len(singles),
+                    "single_key_mismatches": sum(answers[i] != want[i] for i in singles)
+                    if len(answers) == items else None,
+                    "limit_mismatches": sum(a[1] != w[1] for a, w in zip(answers, want)),
+                }
+                res = {"phase": "latency", "size": size.name, "kernel": name, "mesh": mesh,
+                       "path": "objects" if objects else "bytes", "calls": LAT_CALLS,
+                       "items_per_call": LAT_ITEMS, "callers": LAT_CALLERS,
+                       "max_waves": eng.cfg.max_waves, "pipeline_depth": eng.cfg.pipeline_depth,
+                       "p50_ms": float(np.percentile(ms, 50)),
+                       "p99_ms": float(np.percentile(ms, 99)),
+                       "max_ms": float(ms[-1]), "mean_ms": float(ms.mean()),
+                       "decisions_per_s": items / wall, "wall_s": wall,
+                       "answers": len(answers), "error_answers": errors,
+                       "counts": counts, "against_cpu": checked,
+                       "flushes": st["flushes"], "columnar_flushes": st["columnar_flushes"],
+                       "waves": st["waves"], "launches": launches[name],
+                       "inflight_max": st["inflight_max"],
+                       "batch_width_p50": width["p50"], "flush_waves_p50": waves_hist["p50"],
+                       "stages": stages, "pipeline_overlap_p50": overlap, "gc": gcp.summary(),
+                       "card": card}
+                emit(res)
+                if len(answers) != items or errors:
+                    raise AssertionError(f"{name}: {len(answers)} answers of {items}, "
+                                         f"{errors} errors")
+                if checked["single_key_mismatches"] or checked["limit_mismatches"]:
+                    raise AssertionError(f"{name}: answers differ from the CPU engine: {checked}")
+                if not (over == counts["rendered_admission_over_limit"]
+                        == counts["rendered_over_limit_by_path"]
+                        and counts["stats_over_limit"] == counts["rendered_over_limit"]
+                        and items == counts["stats_requests"] == counts["stats_hits_plus_misses"]
+                        == counts["rendered_local_calls"]
+                        == counts["rendered_admission_decisions"]):
+                    raise AssertionError(f"{name}: counters disagree with the answers: {counts}")
+                if not (launches[name] == st["waves"] > 0):
+                    raise AssertionError(f"{name}: kernel launches do not match the waves")
+                results[(name, res["path"])] = res
+                free_device()
+    return results
+
+
 def run_global(rng, size: Size, reference, card: str):
     """The GLOBAL replica tier's phases. Returns {replica kernel name:
     (max err, times line)} and {layout: launches on the main path}."""
@@ -3707,15 +4325,15 @@ def replica_entry(name, layout, err, times, launches):
     }
 
 
-def run_size(rng, size: Size, card: str):
+def run_size(rng, size: Size, card: str, scan_ops: dict):
     """Kernel checks and times for each wave, scan and sharded
     configuration of the size, then its main path and its mesh main
     path. Returns ({wave kernel name: (kernel, times, main) lines},
     {scan kernel name: (max err, times line)}, {sharded kernel name:
     (max err, times line)}, {(sharded kernel name, size): mesh main path
-    line}, on the flat size its main path's reference (the image, calls
-    and CPU answers, for the GLOBAL phases), else None, and the main
-    path's calls, for the store phases)."""
+    line}, and its main path's reference (the image, calls, CPU answers
+    and snapshot: for the GLOBAL phases on the flat size, the store
+    phases, and the metrics and latency phases at the end)."""
     image = live_image(rng, size)
     pm = scrambled_page_map(rng, size) if size.page_groups else None
     checked, scans, meshes = {}, {}, {}
@@ -3728,7 +4346,7 @@ def run_size(rng, size: Size, card: str):
         del kt, pt
         free_device()
         tables, serr = phase_scan_kernel(rng, image, size, layout, pmap)
-        stimes = phase_scan_times(rng, size, layout, pmap, tables, card)
+        stimes = phase_scan_times(rng, size, layout, pmap, tables, card, scan_ops)
         scans[cuda_decide.config_name(layout, paged, scan=True)] = (serr, stimes)
         team_vs_scan(size, layout, paged, times, stimes, card)
         del tables
@@ -3748,11 +4366,8 @@ def run_size(rng, size: Size, card: str):
     phase_pipeline(size, reference)
     if size.page_groups:
         phase_demoter(size, reference, card)
-    keep = None if size.page_groups else reference
-    calls = reference[1]
-    del reference
     return ({k: (err, times, main[k]) for k, (err, times) in checked.items()}, scans,
-            meshes, mesh_main, keep, calls)
+            meshes, mesh_main, reference)
 
 
 def team_vs_scan(size, layout, paged, times, stimes, card) -> None:
@@ -3834,9 +4449,16 @@ def main() -> int:
     ap.add_argument("--store-op-counts", action="store_true",
                     help="print the store ops' device operations per call (store_ops "
                          "runs this in a fresh process) and exit")
+    ap.add_argument("--scan-op-counts", action="store_true",
+                    help="print the device operations of every scan configuration's "
+                         "scans (scan_times checks them; main runs this in a fresh "
+                         "process) and exit")
     args = ap.parse_args()
     if args.store_op_counts:
         print(json.dumps(store_op_counts()))
+        return 0
+    if args.scan_op_counts:
+        print(json.dumps(scan_op_names(args.seed)))
         return 0
     t0 = time.perf_counter()
     rng = np.random.default_rng(args.seed)
@@ -3850,12 +4472,13 @@ def main() -> int:
           "count": torch.cuda.device_count()})
 
     phase_build()
+    scan_ops = scan_op_names_child(args.seed)
     entries, scans = [], []
-    mesh_errs, mesh_times, mesh_launches, size_calls = {}, {}, {}, []
+    mesh_errs, mesh_times, mesh_launches, size_refs = {}, {}, {}, []
     for size in SIZES:
-        done, scanned, meshed, mesh_main, reference, calls = run_size(rng, size, smi)
-        size_calls.append((size, calls))
-        if reference is not None:
+        done, scanned, meshed, mesh_main, reference = run_size(rng, size, smi, scan_ops)
+        size_refs.append((size, reference))
+        if not size.page_groups:
             flat, flat_reference = size, reference
         for layout, paged in size.configs:
             k = cuda_decide.config_name(layout, paged)
@@ -3873,17 +4496,22 @@ def main() -> int:
     # the GLOBAL replica tier last, on the flat size's calls: its
     # profiler sessions come after every exact count of the phases above
     replicas, replica_launches = run_global(rng, flat, flat_reference, smi)
-    del flat_reference
     # the store path's thousands of small operations come after every
     # exact profiler count too (CUPTI lost scan records after them)
     store_launches = {}
-    for size, calls in size_calls:
-        for k, v in phase_store_path(rng, size, calls, smi).items():
+    for size, reference in size_refs:
+        for k, v in phase_store_path(rng, size, reference[1], smi).items():
             store_launches[k] = store_launches.get(k, 0) + v
         if not size.page_groups:
-            phase_loader(rng, size, calls, smi)
-    del size_calls
+            phase_loader(rng, size, reference[1], smi)
     phase_store_ops(rng, smi)
+    # the observability core over the serving paths, and the p99 latency:
+    # no profiler, after every exact count
+    for size, reference in size_refs:
+        phase_metrics(size, reference, smi)
+    phase_telemetry_ab(flat, flat_reference, smi)
+    phase_latency(rng, flat, flat_reference, smi)
+    del size_refs, flat_reference
     entries += scans
     entries += [mesh_entry(cuda_decide.sharded_name(lay), lay, mesh_errs[cuda_decide.sharded_name(lay)],
                            mesh_times[cuda_decide.sharded_name(lay)],

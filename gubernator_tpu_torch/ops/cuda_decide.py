@@ -743,14 +743,25 @@ def scan_grid(device, batch: int, *, layout: str, ways: int, paged: bool) -> Tup
     return threads.value, blocks.value
 
 
-def scan_items(batch: int, ways: int, threads: int = 128) -> int:
-    """Items of a scan step (decide_lane.cuh scan_plan): blocks' worth of
-    `threads` threads, a team of T per lane (T the smallest power of two
-    >= ways, at most 32)."""
+def team_size(ways: int) -> int:
+    """T, the threads of a lane's team (decide_lane.cuh team_size): the
+    smallest power of two >= ways, at most 32."""
     t = 1
     while t < ways and t < 32:
         t <<= 1
-    return -(-batch // (threads // t))
+    return t
+
+
+def lanes_per_block(ways: int) -> int:
+    """Lanes a block of the wave and sharded kernels holds: 128 threads
+    (decide_lane.cuh TEAM_THREADS) over the team's width."""
+    return 128 // team_size(ways)
+
+
+def scan_items(batch: int, ways: int, threads: int = 128) -> int:
+    """Items of a scan step (decide_lane.cuh scan_plan): blocks' worth of
+    `threads` threads, a team of T per lane."""
+    return -(-batch // (threads // team_size(ways)))
 
 
 def decide_scan_lane_code_on_host(

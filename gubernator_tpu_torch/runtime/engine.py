@@ -94,6 +94,17 @@ keep the widths of the store-less path: the JAX engine pins them at
 shape, which changes no answer and which the port has no need of. The
 replica tier's lanes never persist.
 
+Telemetry (JAX `EngineMetrics`, metrics.py): every flush feeds the
+engine's counters and histograms on the host, after its read-back: the
+flush's duration and device sync, its waves and width, the stages of a
+request's life (intake, assemble, dispatch, inflight_wait, device_sync,
+resolve), the pipeline's in-flight depth and host/device overlap, the
+flight recorder, and the hot-key sketch. `stats()` reads the decide's
+counts and the waves from the EngineMetrics. With `stage_metadata` every answer
+of the object path carries `stage_breakdown_us`. The pump, the
+completion thread and the demoter beat a `Watchdog` once it is set on
+`watchdog`. Nothing of this reaches the device.
+
 Thread model: callers on any thread enqueue; one pump thread assembles
 and launches; the completion thread (depth >= 2) reads the decisions
 back and resolves futures. The table lock guards the table and the
@@ -115,7 +126,7 @@ import numpy as np
 import torch
 
 from gubernator_tpu_torch import wire
-from gubernator_tpu_torch.api.keys import key_hash128_batch, key_hash128_batch_raw
+from gubernator_tpu_torch.api.keys import group_of, key_hash128_batch, key_hash128_batch_raw
 from gubernator_tpu_torch.api.types import (
     Behavior,
     ERR_ENGINE_DRAINING,
@@ -129,6 +140,7 @@ from gubernator_tpu_torch.ops.encode import EncodeError, encode_one, encode_rows
 from gubernator_tpu_torch.ops.inject import INJECT_DTYPES, InjectBatch
 from gubernator_tpu_torch.ops.admission import admission_oracle
 from gubernator_tpu_torch.ops.census import census_oracle
+from gubernator_tpu_torch.metrics import engine_histograms
 from gubernator_tpu_torch.ops.kernels import BYTES_PER_SLOT, LAYOUTS, get_admission, get_census
 from gubernator_tpu_torch.ops.layout import (
     BATCH_DTYPES,
@@ -138,9 +150,11 @@ from gubernator_tpu_torch.ops.layout import (
     batch_to_device,
 )
 from gubernator_tpu_torch.runtime.pager import wide_zeros
+from gubernator_tpu_torch.runtime.telemetry import FlightRecorder
 from gubernator_tpu_torch.runtime.topology import SingleChipTopology
 from gubernator_tpu_torch.store.store import SNAPSHOT_COLUMNS, ItemSnapshot
 from gubernator_tpu_torch.utils import clock as _clock
+from gubernator_tpu_torch.utils import devicemem
 
 
 class TableCommittedError(RuntimeError):
@@ -195,6 +209,80 @@ class EngineConfig:
     # thread that reads tickets back in dispatch order while the pump
     # assembles the next flush. Decisions are the same at every depth.
     pipeline_depth: int = 2
+    # Top-K hot-key attribution (GUBER_HOTKEYS_K): entries of the
+    # space-saving sketch updated at each flush boundary
+    # (`hotkeys_snapshot()`, gubernator_hotkey_hits); 0 disables it.
+    hotkeys_k: int = 128
+    # Per-request stage breakdown in response metadata
+    # (GUBER_STAGE_METADATA): each answer of the object path carries
+    # `stage_breakdown_us` with its flush's stage times. Off: no
+    # per-item bookkeeping.
+    stage_metadata: bool = False
+
+
+_STAGES = ("intake", "assemble", "dispatch", "inflight_wait", "device_sync", "resolve")
+
+
+class EngineMetrics:
+    """Counters and device-tier distributions the observability layer
+    exports (JAX `runtime/engine.py` `EngineMetrics`): the scalar
+    counters map to the reference's Prometheus catalog
+    (docs/prometheus.md); the histogram families (metrics.py
+    `engine_histograms`), the flight recorder and the hot-key sketch are
+    the device tier's. Wired into a Metrics registry by
+    `metrics.wire_engine_telemetry()`. `cold_compiles` stays 0: the port
+    compiles nothing while it serves."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.cache_hits = 0
+        self.cache_misses = 0
+        self.unexpired_evictions = 0
+        self.over_limit = 0
+        self.batches = 0
+        self.waves = 0
+        self.requests = 0
+        self.served = 0
+        self.cold_compiles = 0
+        hists = engine_histograms()
+        for attr, h in hists.items():
+            setattr(self, attr, h)
+        self._histograms = tuple(hists.values())
+        # pre-resolved stage children (labels() is per-flush cost)
+        self._stage = {s: self.stage_duration.labels(s) for s in _STAGES}
+        self.recorder = FlightRecorder()
+
+    def histograms(self) -> tuple:
+        return self._histograms
+
+    def observe_stage(self, stage: str, dur: float) -> None:
+        self._stage[stage].observe(dur)
+
+    def observe(self, hits, misses, evic, over, waves, n, served=None):
+        """One flush's counts (of both tiers): `n` items taken (encode
+        errors included, as the JAX engine counts them), `served` of
+        them answered by a wave (all `n` when not given)."""
+        with self.lock:
+            self.cache_hits += hits
+            self.cache_misses += misses
+            self.unexpired_evictions += evic
+            self.over_limit += over
+            self.batches += 1
+            self.waves += waves
+            self.requests += n
+            self.served += n if served is None else served
+
+    def observe_flush(self, path: str, n: int, waves: int, dur: float,
+                      dev: float, collective: bool = False) -> None:
+        """One flush's distribution samples (per FLUSH, not per
+        request). `collective` (mesh topologies) also lands the device
+        time in the collective-tick histogram."""
+        self.flush_duration.labels(path).observe(dur)
+        self.device_sync.labels(path).observe(dev)
+        self.batch_width.labels(path).observe(n)
+        self.flush_waves.observe(waves)
+        if collective:
+            self.collective_tick.observe(dev)
 
 
 class _WaveAssembler:
@@ -237,13 +325,15 @@ class _WaveAssembler:
 
 class _Slot:
     """Result slot of one bulk member (a full Future per item costs lock
-    and notify overhead; the bulk's one Future resolves at the end)."""
+    and notify overhead; the bulk's one Future resolves at the end).
+    `t_enq` is the enqueue stamp, set only under `stage_metadata`."""
 
-    __slots__ = ("value", "_done")
+    __slots__ = ("value", "_done", "t_enq")
 
     def __init__(self):
         self.value = None
         self._done = False
+        self.t_enq = None
 
     def set_result(self, v) -> None:
         self.value = v
@@ -254,14 +344,16 @@ class _Slot:
 
 
 class _Bulk:
-    """A bulk queue entry: N (req, _Slot) pairs resolved by one Future."""
+    """A bulk queue entry: N (req, _Slot) pairs resolved by one Future,
+    and its enqueue stamp (the queue-wait histogram's start)."""
 
-    __slots__ = ("work", "slots", "future")
+    __slots__ = ("work", "slots", "future", "t_enq")
 
     def __init__(self, work, slots, future):
         self.work = work
         self.slots = slots
         self.future = future
+        self.t_enq = time.perf_counter()
 
     def resolve(self) -> None:
         if not self.future.done():
@@ -287,6 +379,14 @@ class _FlushTicket:
         "launches",    # kernel launches made by the waves
         "store",       # with a Store: (_StoreFlush, write-behind entries
                        # (hash_key, wave, lane, hi, lo) in request order)
+        "keys",        # (hi, lo) lists of the items' keys, for the hot-key sketch
+        "carry_n",     # items the wave cap carried to the next flush
+        "widths",      # each wave's lanes (both tiers)
+        "seq",         # the flush's number, the flight recorder's join key
+        "t0",          # perf_counter stamps: dispatch start,
+        "t_dev",       # the waves' launch start,
+        "t_disp_end",  # dispatch end
+        "host_mark",   # the pump's dispatch seconds so far, at dispatch end
     )
 
     def __init__(self, **kw):
@@ -411,11 +511,36 @@ class MeshEngine:
         self._lock = threading.Lock()  # the table
         self._keys_lock = threading.Lock()  # the host key dictionary
         self._key_strings: Dict[Tuple[int, int], str] = {}
+        # Telemetry (metrics.py): the engine's counters, histograms,
+        # flight recorder and hot-key sketch, fed on the host per flush.
+        self.metrics = EngineMetrics()
+        self._stage_md = bool(cfg.stage_metadata)
+        self.metrics.hotkeys.configure(int(cfg.hotkeys_k or 0))
+        self.metrics.hotkeys.set_resolver(self.key_string)
+        # Which decide serves (gubernator_kernel_backend) and the team
+        # kernel's lanes per block (gubernator_pallas_block_lanes).
+        on_card = self.device.type == "cuda"
+        self.kernel_backend = "cuda" if on_card else "torch"
+        self.pallas_block = cuda_decide.lanes_per_block(cfg.ways) if on_card else 0
+        # Liveness (runtime/watchdog.py): set a Watchdog here and the
+        # pump, the completion thread and the demoter beat it.
+        self.watchdog = None
+        self._ticket_seq = 0  # pump thread only
+        # the pump's seconds in _dispatch so far (pump thread writes; the
+        # completion stage reads it for the overlap ratio)
+        self._host_busy = 0.0
+        # Per-shard decided lanes (mesh topologies), host numpy.
+        self._shard_lock = threading.Lock()
+        self._shard_decisions = (
+            np.zeros(self.topo.n_dev, dtype=np.int64) if self.topo.n_dev > 1 else None
+        )
+        self._mem_subsystems = self._memory_subsystems()
+        self._snapshot_staging_bytes = 0
         self._stats_lock = threading.Lock()
+        # stats()'s own counters; the decide's counts and the waves are
+        # the EngineMetrics'.
         self._stats = dict(
-            flushes=0, columnar_flushes=0, waves=0, replica_waves=0, kernel_launches=0,
-            requests=0,
-            cache_hits=0, cache_misses=0, unexpired_evictions=0, over_limit=0,
+            flushes=0, columnar_flushes=0, replica_waves=0, kernel_launches=0,
             inflight_max=0,
             store_readbacks=0, store_injected=0, inject_waves=0, injected_rows=0,
         )
@@ -466,6 +591,7 @@ class MeshEngine:
 
     def check_async(self, req: RateLimitReq) -> "Future[RateLimitResp]":
         """Enqueue one request; resolves after its wave executes."""
+        t_in = time.perf_counter()
         fut: Future = Future()
         if not self._running:
             fut.set_result(RateLimitResp(error=ERR_ENGINE_DRAINING))
@@ -476,12 +602,17 @@ class MeshEngine:
             return fut
         if req.created_at is None:
             req.created_at = self.now_fn()
-        self._queue.put((req, fut))
+        t_enq = time.perf_counter()
+        self.metrics.observe_stage("intake", t_enq - t_in)
+        if self._stage_md:
+            fut.t_enq = t_enq
+        self._queue.put((req, fut, t_enq))
         return fut
 
     def check_bulk(self, reqs: Sequence[RateLimitReq]) -> "Future[List[RateLimitResp]]":
         """Bulk check: ONE queue entry and ONE Future for N requests.
         Resolves in request order."""
+        t_in = time.perf_counter()
         out: Future = Future()
         if not self._running:
             out.set_result([RateLimitResp(error=ERR_ENGINE_DRAINING) for _ in reqs])
@@ -502,7 +633,12 @@ class MeshEngine:
                 req.created_at = now
             work.append((req, slot))
         if work:
-            self._queue.put(_Bulk(work, slots, out))
+            b = _Bulk(work, slots, out)
+            self.metrics.observe_stage("intake", b.t_enq - t_in)
+            if self._stage_md:
+                for s in slots:
+                    s.t_enq = b.t_enq
+            self._queue.put(b)
         else:
             out.set_result([s.value for s in slots])
         return out
@@ -559,6 +695,13 @@ class MeshEngine:
         demotes, binds, resident_pages and host_pages."""
         with self._stats_lock:
             out = dict(self._stats)
+        em = self.metrics
+        with em.lock:
+            out.update(
+                waves=em.waves, requests=em.served, cache_hits=em.cache_hits,
+                cache_misses=em.cache_misses, unexpired_evictions=em.unexpired_evictions,
+                over_limit=em.over_limit,
+            )
         out["pipeline_depth"] = self._pipe_depth
         pager = self._pager
         if pager is not None:
@@ -566,6 +709,208 @@ class MeshEngine:
                 promotes=pager.promotes, demotes=pager.demotes, binds=pager.binds,
                 resident_pages=pager.resident_count(), host_pages=pager.host_count(),
             )
+        return out
+
+    # -- introspection (JAX engine: debug_snapshot, hotkeys, device memory) ---
+
+    def key_string(self, hi: int, lo: int) -> Optional[str]:
+        """The key string of a (key_hi, key_lo) pair this engine served."""
+        with self._keys_lock:
+            return self._key_strings.get((hi, lo))
+
+    def queue_depth(self) -> int:
+        return self._queue.qsize()
+
+    def live_count(self) -> int:
+        """Occupied slots (gubernator_cache_size) of the cached census."""
+        return self.table_census()["live"]
+
+    def debug_snapshot(self) -> dict:
+        """Telemetry and the flight recorder as one JSON-shaped dict (the
+        JAX engine's /debug/engine payload): host state plus the cached
+        census's occupancy."""
+        em = self.metrics
+        cfg = self.cfg
+        with em.lock:
+            counters = {
+                "requests": em.requests,
+                "batches": em.batches,
+                "waves": em.waves,
+                "cache_hits": em.cache_hits,
+                "cache_misses": em.cache_misses,
+                "unexpired_evictions": em.unexpired_evictions,
+                "over_limit": em.over_limit,
+                "cold_compiles": em.cold_compiles,
+            }
+        return {
+            "engine": type(self).__name__,
+            "layout": cfg.layout,
+            "batch_size": cfg.batch_size,
+            "max_waves": cfg.max_waves,
+            "pipeline_depth": self._pipe_depth,
+            "kernel_backend": self.kernel_backend,
+            "pallas_block": self.pallas_block,
+            "inflight": self._inflight,
+            "queue_depth": self.queue_depth(),
+            "counters": counters,
+            "histograms": {h.name: h.summary() for h in em.histograms()},
+            "flight_recorder": em.recorder.snapshot(),
+            "occupancy": self.occupancy_stats(),
+        }
+
+    def hotkeys_snapshot(self) -> dict:
+        """The hot-key sketch (`/debug/hotkeys`), on an engine without a
+        replica tier joined with the table: each entry gains the key's
+        residency, `resident`, `cold` (idle past the census's second
+        cold threshold), `expired` (window elapsed, slot still held),
+        `evicted`, or `demoted` (its page is in the host tier), from one
+        gather of the entries' groups. A replica tier's GLOBAL keys hash
+        into another keyspace, so such an engine serves the plain
+        sketch, as JAX's does."""
+        snap = self.metrics.hotkeys.snapshot()
+        entries = snap["entries"]
+        if self._rtier is not None or not entries:
+            return snap
+        cfg = self.cfg
+        W = cfg.ways
+        n = len(entries)
+        hi = np.array([e["key_hash"][0] for e in entries], dtype=np.int64)
+        lo = np.array([e["key_hash"][1] for e in entries], dtype=np.int64)
+        grp = np.array([group_of(int(v), cfg.num_groups) for v in lo], dtype=np.int64)
+        demoted = np.zeros(n, dtype=bool)
+        with self._lock, self._on_stream():
+            if self._pager is not None:
+                pgrp = self._pager.phys_groups(grp)
+                demoted = pgrp < 0
+                # a demoted key's lanes read the out-of-range sentinel (zeros)
+                grp_dev = np.where(demoted, self.table.num_slots // W, pgrp)
+            else:
+                grp_dev = grp
+            slots = (grp_dev[:, None] * W + np.arange(W, dtype=np.int64)[None, :]).reshape(-1)
+            rows = self.K.gather_rows(
+                self.table, torch.as_tensor(slots, dtype=torch.int64, device=self.device))
+            cols = {f: getattr(rows, f).cpu().numpy().reshape(n, W)
+                    for f in ("key_hi", "key_lo", "used", "lru", "duration", "expire_at")}
+        now = self.now_fn()
+        th = self._census_thresholds
+        cold_k = th[min(1, len(th) - 1)]
+        for i, e in enumerate(entries):
+            if demoted[i]:
+                e["census"] = "demoted"
+                continue
+            match = cols["used"][i].astype(bool) & (cols["key_hi"][i] == hi[i]) & (
+                cols["key_lo"][i] == lo[i])
+            if not match.any():
+                e["census"] = "evicted"
+                continue
+            w = int(np.argmax(match))
+            if cols["expire_at"][i, w] <= now:
+                e["census"] = "expired"
+            elif now - cols["lru"][i, w] > cold_k * cols["duration"][i, w]:
+                e["census"] = "cold"
+            else:
+                e["census"] = "resident"
+        snap["cold_multiplier"] = int(cold_k)
+        return snap
+
+    def device_memory(self) -> dict:
+        """Per-subsystem device-memory attribution and headroom
+        (utils/devicemem.py): the geometry sized at init, the last
+        snapshot's or restore's staging bytes, and on a card the caching
+        allocator's bytes in use and the card's total. No device work."""
+        subs = dict(self._mem_subsystems)
+        subs["snapshot_staging"] = int(self._snapshot_staging_bytes)
+        subs.setdefault("ici_replicas", 0)
+        return devicemem.snapshot(subs, device=self.device)
+
+    def _memory_subsystems(self) -> dict:
+        """Static device-memory attribution from the engine's geometry
+        (JAX `_memory_subsystems`), in bytes: estimates of what each
+        subsystem keeps resident."""
+        cfg = self.cfg
+        bps = BYTES_PER_SLOT[cfg.layout]
+        if self._pager is not None:
+            # the frames and the int32 page map; demoted pages are host memory
+            table_b = self.K.num_phys_pages * self.K.page_slots * bps
+        else:
+            table_b = cfg.num_groups * cfg.ways * bps
+        n_th = len(self._census_thresholds)
+        hw = int(cfg.census_heatmap_width)
+        census_b = 8 * (2 * 32 + (cfg.ways + 1) + hw + n_th + 16)
+        ring_b = max(int(cfg.pipeline_depth), 1) * cfg.max_waves * cfg.batch_size * 8 * 8
+        admission_b = 8 * (32 + 8)
+        subs = {
+            "slot_table": table_b,
+            "census": census_b,
+            "admission": admission_b,
+            "pipeline_ring": ring_b,
+        }
+        if self._pager is not None:
+            subs["page_map"] = 4 * self.K.num_logical_pages
+        rt = self._rtier
+        if rt is not None:
+            subs["ici_replicas"] = self.topo.n_dev * rt.num_slots * (bps + 8) + 8 * self.topo.n_dev
+            subs["census"] += 8 * ((rt.replica_ways + 1) + hw + n_th + 16)
+            subs["admission"] += admission_b
+        return subs
+
+    def _note_shard_decisions(self, hb: RequestBatch) -> None:
+        """Fold a flush's table lanes onto the shards that own their
+        groups (contiguous, as the sharded kernel splits them): host
+        numpy over the host batch."""
+        n_dev = self.topo.n_dev
+        groups = (self.K.num_phys_pages * self.K.groups_per_page
+                  if self._pager is not None else self.cfg.num_groups)
+        per = max(groups // n_dev, 1)
+        grp = hb.group[hb.active].astype(np.int64)
+        counts = np.bincount(np.minimum(grp // per, n_dev - 1), minlength=n_dev)
+        with self._shard_lock:
+            self._shard_decisions += counts
+
+    def shard_stats(self) -> Optional[dict]:
+        """Per-shard skew of a mesh (JAX `shard_stats`): decisions (the
+        lanes each shard owned), occupancy (the cached census's heatmap
+        folded onto shard boundaries), page frames, and the max/mean
+        imbalance of each; None on one table. Reads host counters and
+        the ALREADY-CACHED census only."""
+        n_dev = self.topo.n_dev
+        if self._shard_decisions is None:
+            return None
+        with self._shard_lock:
+            decisions = self._shard_decisions.tolist()
+
+        def imbalance(vals) -> Optional[float]:
+            total = sum(vals)
+            if total <= 0:
+                return None
+            return round(max(vals) / (total / float(len(vals))), 4)
+
+        out: dict = {
+            "n_shards": n_dev,
+            "decisions": decisions,
+            "decision_imbalance": imbalance(decisions),
+        }
+        census = self.cached_census()
+        if census is not None:
+            tier = census.get("tiers", {}).get(self.topo.primary_tier, census)
+            heat = tier.get("heatmap") or []
+            gpr = int(tier.get("heatmap_groups_per_region", 1) or 1)
+            groups = int(tier.get("groups", 0) or 0)
+            if heat and groups:
+                per = max(groups // n_dev, 1)
+                occ = [0] * n_dev
+                for r, live in enumerate(heat):
+                    occ[min((r * gpr) // per, n_dev - 1)] += int(live)
+                out["occupancy"] = occ
+                out["occupancy_imbalance"] = imbalance(occ)
+            pages = census.get("pages")
+            if pages and pages.get("shards"):
+                out["pages"] = pages["shards"]
+                out["resident_imbalance"] = imbalance(
+                    [int(s.get("resident", 0)) for s in pages["shards"]])
+        dims = [v for v in (out.get("decision_imbalance"), out.get("occupancy_imbalance"),
+                            out.get("resident_imbalance")) if v is not None]
+        out["imbalance_ratio"] = max(dims) if dims else None
         return out
 
     # -- table census (docs/monitoring.md "Table census") --------------------
@@ -675,9 +1020,10 @@ class MeshEngine:
         """Insertions, unexpired evictions and recycles (inserts that
         reclaimed a dead resident slot: the remainder of the insertions)
         since the last census, and their rates. _census_lock held."""
-        with self._stats_lock:
-            misses = self._stats["cache_misses"]
-            evics = self._stats["unexpired_evictions"]
+        em = self.metrics
+        with em.lock:
+            misses = em.cache_misses
+            evics = em.unexpired_evictions
         t = time.monotonic()
         prev = self._census_prev
         self._census_prev = (t, misses, evics, snap["live"])
@@ -749,6 +1095,11 @@ class MeshEngine:
         the serving path's demand demotes cover for the demoter."""
         interval = max(float(self.cfg.page_demote_interval_s), 0.05)
         while not self._demote_stop.wait(interval):
+            wd = self.watchdog
+            if wd is not None:
+                # its period widens the stall deadline: a long cadence
+                # is not a wedge
+                wd.beat("page-demoter", period_s=interval)
             try:
                 self._demote_once()
             except Exception:  # pragma: no cover - defensive, as the JAX engine's
@@ -789,7 +1140,13 @@ class MeshEngine:
 
     def _pump(self) -> None:
         carry: List[Tuple[RateLimitReq, object]] = []
+        qw = self.metrics.queue_wait
         while self._running:
+            wd = self.watchdog
+            if wd is not None:
+                # a pump stuck behind the pipeline semaphore (a wedged
+                # completion thread) stops beating here
+                wd.beat("engine-pump", serving=True)
             if not carry:
                 try:
                     item = self._queue.get(timeout=0.1)
@@ -807,7 +1164,7 @@ class MeshEngine:
                 break
             batch = list(carry)
             carry = []
-            flush = item is _FLUSH or self._extend(batch, item)
+            flush = item is _FLUSH or self._extend(batch, item, qw)
             deadline = time.monotonic() + self.cfg.batch_wait_s
             while not flush and len(batch) < self.cfg.max_flush_items:
                 remaining = deadline - time.monotonic()
@@ -820,7 +1177,7 @@ class MeshEngine:
                 if nxt is _STOP:
                     self._running = False
                     break
-                if nxt is _FLUSH or self._extend(batch, nxt):
+                if nxt is _FLUSH or self._extend(batch, nxt, qw):
                     break
             if batch:
                 carry = self._serve(batch)
@@ -872,16 +1229,21 @@ class MeshEngine:
                 break
         return pending
 
-    def _extend(self, batch: list, entry) -> bool:
-        """Add a queue entry (single pair or bulk); True if it asks for an
-        immediate flush (NO_BATCHING)."""
+    def _extend(self, batch: list, entry, wait_hist=None) -> bool:
+        """Add a queue entry (single request or bulk); True if it asks for
+        an immediate flush (NO_BATCHING). The pump passes the queue-wait
+        histogram: an entry's wait from enqueue to pickup lands there."""
         nb = int(Behavior.NO_BATCHING)
         if type(entry) is _Bulk:
+            if wait_hist is not None:
+                wait_hist.observe(time.perf_counter() - entry.t_enq)
             batch.extend(entry.work)
             with self._bulks_lock:
                 self._bulks.append(entry)
             return any(r.behavior & nb for r, _ in entry.work)
-        req, fut = entry
+        req, fut, t_enq = entry
+        if wait_hist is not None:
+            wait_hist.observe(time.perf_counter() - t_enq)
         batch.append((req, fut))
         return bool(req.behavior & nb)
 
@@ -942,26 +1304,39 @@ class MeshEngine:
         end of its completion, as the JAX engine counts it: two in
         flight means a flush was launched while the one before it had
         not been answered. Returns the (req, future) pairs the wave cap
-        deferred."""
-        if not self._pipeline_active():
-            carry, ticket = self._dispatch(items)
-            if ticket is not None:
-                self._note_inflight(1)
-                self._complete(ticket)
-            return carry
-        self._pipe_sem.acquire()
+        deferred.
+
+        The pump's seconds in `_dispatch` accumulate in `_host_busy`:
+        a flush's overlap ratio is the dispatch work done for other
+        flushes while it was in flight (`_observe_overlap`)."""
+        pipelined = self._pipeline_active()
+        if pipelined:
+            self._pipe_sem.acquire()
+        t_host0 = time.perf_counter()
         try:
             carry, ticket = self._dispatch(items)
         except BaseException:
-            self._pipe_sem.release()
+            if pipelined:
+                self._pipe_sem.release()
             raise
+        end = time.perf_counter()
+        self._host_busy += end - t_host0
         if ticket is None:
-            self._pipe_sem.release()
+            if pipelined:
+                self._pipe_sem.release()
+            return carry
+        ticket.t_disp_end = end
+        ticket.host_mark = self._host_busy
+        if not pipelined:
+            self._note_inflight(1)
+            self.metrics.pipeline_inflight.observe(1)
+            self._complete(ticket)
             return carry
         with self._pipe_lock:
             self._inflight += 1
             depth = self._inflight
         self._note_inflight(depth)
+        self.metrics.pipeline_inflight.observe(depth)
         self._pipe_q.put(ticket)
         return carry
 
@@ -978,9 +1353,17 @@ class MeshEngine:
     def _completion_loop(self) -> None:
         """Completion stage: each ticket in dispatch order, its event
         waited on, its futures resolved. A failed ticket fails only its
-        own futures; the loop lives as long as the engine."""
+        own futures; the loop lives as long as the engine. The get is
+        bounded so that an idle loop still beats the watchdog: a wedge
+        inside `_complete` stops the beats, idleness does not."""
         while True:
-            t = self._pipe_q.get()
+            wd = self.watchdog
+            if wd is not None:
+                wd.beat("engine-complete", serving=True)
+            try:
+                t = self._pipe_q.get(timeout=0.5)
+            except queue.Empty:
+                continue
             if t is _STOP:
                 return
             try:
@@ -1002,6 +1385,15 @@ class MeshEngine:
             if not fut.done():
                 fut.set_result(RateLimitResp(error=err))
 
+    def _observe_overlap(self, ticket) -> None:
+        """Host/device overlap sample for one completed flush: the
+        pump's dispatch work for OTHER flushes while this one was in
+        flight, as a fraction of its in-flight window (0 at depth 1)."""
+        window = time.perf_counter() - ticket.t_disp_end
+        overlap = self._host_busy - ticket.host_mark
+        ratio = min(overlap / window, 1.0) if window > 0 else 0.0
+        self.metrics.pipeline_overlap.observe(ratio)
+
     def _pipeline_quiesce(self) -> None:
         """Wait until every ticket in flight has completed and switch
         `_process` to inline completion (drain mode). Pump thread only:
@@ -1021,8 +1413,9 @@ class MeshEngine:
         """Pipeline stage 1: assemble + encode the flush on the host and
         launch its waves, with their read-back queued and nothing waited
         for. Returns (carry, ticket); `_complete` resolves the ticket.
-        The ticket is None when no wave was made (every item resolved by
-        an encode error).
+        The ticket is None only when the flush took no item (all
+        carried); a flush whose items all failed to encode gets a ticket
+        with no wave, so that its completion sweeps their bulks.
 
         With a replica tier (IciEngine), a GLOBAL item goes to the
         replicas (JAX `engine.py` `_dispatch`): its key re-hashed into
@@ -1035,6 +1428,7 @@ class MeshEngine:
         With a Store, the never-seen keys of the flush (every tier's, as
         JAX's) are fetched here, outside the table lock, and the table's
         waves run the store path (`_execute_waves`)."""
+        t0 = time.perf_counter()
         now = self.now_fn()
         cfg = self.cfg
         store = self.store
@@ -1109,8 +1503,10 @@ class MeshEngine:
                     encode_rows(a.waves[w], rows[tier][1][w], wrows, now)
             hbs[tier] = _flush_batch(a)
         (hb, spans), (rhb, rspans) = hbs["s"], hbs["r"]
-        if not spans and not rspans:
+        if not spans and not rspans and len(carry) == len(items):
             return carry, None
+        # A flush whose every item failed to encode has no wave, and still
+        # a ticket: its completion resolves the bulks those items belong to.
         sf = seq = None
         if store is not None:
             # the table's lanes: their requests per wave for the
@@ -1122,54 +1518,114 @@ class MeshEngine:
                     _t, w, lane = place
                     sf.lane_reqs[w][lane] = (req, hi_l[i], lo_l[i])
                     seq.append((req.hash_key(), w, lane, hi_l[i], lo_l[i]))
+        self._ticket_seq += 1
+        t_dev = time.perf_counter()
         flush, rflush, launches = self._execute_waves(hb, spans, now, rhb, rspans, sf)
         return carry, _FlushTicket(
             items=items, placements=placements, flush=flush, rflush=rflush,
             waves=len(spans) + len(rspans), launches=launches,
             store=(sf, seq) if sf is not None else None,
+            keys=(hi_l, lo_l), carry_n=len(carry),
+            widths=[b for _o, b in spans] + [b for _o, b in rspans],
+            seq=self._ticket_seq, t0=t0, t_dev=t_dev,
         )
 
     def _complete(self, t: _FlushTicket) -> None:
         """Pipeline stage 2: wait for the ticket's read-back (its events
-        on a card), count the flush over both tiers, run the Store's
-        write-behind (before any future resolves: a caller that saw its
-        answer finds the store holding it, as the reference's OnChange
-        runs within the request), resolve its futures."""
+        on a card), count the flush over both tiers and feed its
+        telemetry (JAX `_complete`: the flush, its stages and the flight
+        recorder), run the Store's write-behind (before any future
+        resolves: a caller that saw its answer finds the store holding
+        it, as the reference's OnChange runs within the request), resolve
+        its futures (with `stage_breakdown_us` under `stage_metadata`),
+        and fold the flush's keys into the hot-key sketch."""
+        t_c0 = time.perf_counter()
         hosts = {"s": t.flush.host() if t.flush is not None else [],
                  "r": t.rflush.host() if t.rflush is not None else []}
+        t_sync = time.perf_counter()
+        dev_s = t_sync - t.t_dev
         served = sum(p is not None for p in t.placements)
+        dur = time.perf_counter() - t.t0
+        # the metrics count every item the flush took (encode errors too),
+        # as the JAX engine's do
         self._count_flush("flushes", hosts["s"] + hosts["r"], t.waves, t.launches, served,
-                          len(hosts["r"]))
+                          len(hosts["r"]), taken=len(t.items) - t.carry_n)
+        em = self.metrics
+        em.observe_flush("object", len(t.items) - t.carry_n, t.waves, dur, dev_s,
+                         collective=self.topo.n_dev > 1)
+        em.observe_stage("assemble", t.t_dev - t.t0)
+        em.observe_stage("dispatch", t.t_disp_end - t.t_dev)
+        em.observe_stage("inflight_wait", max(t_c0 - t.t_disp_end, 0.0))
+        em.observe_stage("device_sync", t_sync - t_c0)
+        em.recorder.record(
+            path="object", layout=self.cfg.layout, n=len(t.items) - t.carry_n,
+            waves=t.waves, carry=t.carry_n, widths=t.widths,
+            dur_us=int(dur * 1e6), dev_us=int(dev_s * 1e6), ticket=t.seq, trace_id="",
+        )
         if t.store is not None:
             sf, seq = t.store
             self._drop_displaced_strings(sf.events)
             self._store_write_behind_core(seq, sf)
-        for (_req, fut), place in zip(t.items, t.placements):
+        # under stage_metadata: the stage times every answer of the flush
+        # shares; each answer adds its own queue wait
+        stage_base = None
+        if self._stage_md:
+            stage_base = (
+                f"assemble={int((t.t_dev - t.t0) * 1e6)}"
+                f",dispatch={int((t.t_disp_end - t.t_dev) * 1e6)}"
+                f",inflight_wait={int(max(t_c0 - t.t_disp_end, 0.0) * 1e6)}"
+                f",device_sync={int((t_sync - t_c0) * 1e6)}"
+            )
+        hk = em.hotkeys if em.hotkeys.k > 0 else None
+        hk_agg: Dict[Tuple[int, int], list] = {}
+        hi_l, lo_l = t.keys
+        for i, ((req, fut), place) in enumerate(zip(t.items, t.placements)):
             if place is None:
                 continue  # resolved (encode error) or carried
             tier, w, lane = place
             st, rem, rst, lim = hosts[tier][w][:4]
+            status = int(st[lane])
+            if hk is not None:
+                k = (hi_l[i], lo_l[i])
+                ent = hk_agg.get(k)
+                if ent is None:
+                    hk_agg[k] = [max(int(req.hits), 0), int(status == 1), req.hash_key()]
+                else:
+                    ent[0] += max(int(req.hits), 0)
+                    ent[1] += int(status == 1)
+            md = None
+            if stage_base is not None:
+                t_enq = getattr(fut, "t_enq", None)
+                md = {"stage_breakdown_us": (
+                    f"queue={int((t.t0 - t_enq) * 1e6)},{stage_base}"
+                    if t_enq is not None else stage_base
+                )}
             fut.set_result(RateLimitResp(
-                status=int(st[lane]),
+                status=status,
                 limit=int(lim[lane]),
                 remaining=int(rem[lane]),
                 reset_time=int(rst[lane]),
+                **({"metadata": md} if md else {}),
             ))
+        if hk is not None and hk_agg:
+            hk.update([(k, v[0], v[1], v[2]) for k, v in hk_agg.items()])
+        em.observe_stage("resolve", time.perf_counter() - t_sync)
+        self._observe_overlap(t)
 
     def _count_flush(self, kind: str, host, waves: int, launches: int, served: int,
-                     replica_waves: int = 0) -> None:
+                     replica_waves: int = 0, *, taken: int) -> None:
+        """Count one flush: the decide's counts and the waves into the
+        EngineMetrics (`served` items answered by a wave, stats'
+        requests; `taken` items the flush took, the metrics' requests,
+        encode errors included, as the JAX engine counts them), the
+        flush's kind, replica waves and launches into `stats()`'s own."""
         hits, misses, evictions, over = _wave_totals(host)
+        self.metrics.observe(hits, misses, evictions, over, waves, taken, served)
         with self._stats_lock:
             s = self._stats
             s[kind] += 1
-            s["waves"] += waves
             s["replica_waves"] += replica_waves
             s["kernel_launches"] += launches
-            s["requests"] += served
-            s["cache_hits"] += hits
-            s["cache_misses"] += misses
-            s["unexpired_evictions"] += evictions
-            s["over_limit"] += over
 
     def _execute_waves(self, hb: Optional[RequestBatch], spans, now: int,
                        rhb: Optional[RequestBatch] = None, rspans=(),
@@ -1202,6 +1658,10 @@ class MeshEngine:
         rt = self._rtier
         launches = 0
         flush = rflush = None
+        if self._shard_decisions is not None and spans:
+            # the one point both the object and the columnar path pass:
+            # the table waves' lanes, by the shard that owns their group
+            self._note_shard_decisions(hb)
         with self._lock, self.topo.dispatch_guard(), self._on_stream():
             if spans:
                 flush = cuda_decide.WaveFlush(batch_to_device(hb, self.device), spans, self._memo)
@@ -1558,6 +2018,7 @@ class MeshEngine:
         store = self.store
         if cols.n == 0:
             return None
+        t_start = time.perf_counter()
         if now is None:
             now = self.now_fn()
         if hashes is None:
@@ -1644,11 +2105,12 @@ class MeshEngine:
             batches[tier] = (RequestBatch(*(c.reshape(-1) for c in wb)),
                              [(w * B, B) for w in range(W)])
         (hb, spans), (rhb, rspans) = batches["s"], batches["r"]
+        t_dev = time.perf_counter()
         flush, rflush, launches = self._execute_waves(hb, spans, now, rhb, rspans, sf)
         hosts = {"s": flush.host() if flush is not None else [],
                  "r": rflush.host() if rflush is not None else []}
-        self._count_flush("columnar_flushes", hosts["s"] + hosts["r"], len(spans) + len(rspans),
-                          launches, cols.n, len(rspans))
+        dev_s = time.perf_counter() - t_dev
+        n_waves = len(spans) + len(rspans)
         if strs is not None:
             self._store_write_behind_core(zip(strs, wave_l, lane_l, hi_l, lo_l), sf)
             self._drop_displaced_strings(sf.events)
@@ -1659,6 +2121,21 @@ class MeshEngine:
                 out = [np.zeros(cols.n, dtype=x.dtype) for x in stacked]
             for o, x in zip(out, stacked):
                 o[pos] = x[asm[3]]
+        dur = time.perf_counter() - t_start
+        self._count_flush("columnar_flushes", hosts["s"] + hosts["r"], n_waves,
+                          launches, cols.n, len(rspans), taken=cols.n)
+        em = self.metrics
+        em.observe_flush("columnar", cols.n, n_waves, dur, dev_s,
+                         collective=self.topo.n_dev > 1)
+        em.observe_stage("assemble", t_dev - t_start)
+        em.observe_stage("device_sync", dev_s)
+        em.recorder.record(
+            path="columnar", layout=cfg.layout, n=cols.n, waves=n_waves, carry=0,
+            widths=[cfg.batch_size] * n_waves, dur_us=int(dur * 1e6),
+            dev_us=int(dev_s * 1e6), trace_id="",
+        )
+        if em.hotkeys.k > 0:
+            _note_hotkeys_columnar(em.hotkeys, hi, lo, cols.hits, out[0])
         return tuple(out)
 
     def _maybe_prune_key_strings(self) -> None:
@@ -1698,6 +2175,8 @@ class MeshEngine:
                 f: getattr(wide, f).to("cpu", copy=True).numpy()
                 for f in SlotTable._fields
             }
+            # the bytes this snapshot staged (device_memory's snapshot_staging)
+            self._snapshot_staging_bytes = sum(a.nbytes for a in host.values())
             if self._pager is not None:
                 host = self._logical_image(host)
         with self._keys_lock:
@@ -1735,6 +2214,7 @@ class MeshEngine:
             raise ValueError(
                 f"snapshot holds {wide.num_slots} slots; this engine has {n}"
             )
+        self._snapshot_staging_bytes = sum(getattr(wide, f).nbytes for f in SlotTable._fields)
         if self._pager is not None:
             self._restore_paged(wide)
         else:
@@ -2019,6 +2499,24 @@ def _stack_wave_outputs(host):
         np.stack([h[1] for h in host]),
         np.stack([h[2] for h in host]),
     )
+
+
+def _note_hotkeys_columnar(hk, hi, lo, hits, status) -> None:
+    """Fold one columnar flush into the hot-key sketch, keyed by the
+    128-bit hash pair (the edge decodes no key strings for this; display
+    names resolve through the sketch's resolver). Host arrays only."""
+    agg: Dict[Tuple[int, int], list] = {}
+    for h, l, w, s in zip(hi.tolist(), lo.tolist(), hits.tolist(), status.tolist()):
+        o = 1 if s == 1 else 0  # Status.OVER_LIMIT
+        k = (h, l)
+        ent = agg.get(k)
+        if ent is None:
+            agg[k] = [max(int(w), 0), o]
+        else:
+            ent[0] += max(int(w), 0)
+            ent[1] += o
+    if agg:
+        hk.update([(k, v[0], v[1], None) for k, v in agg.items()])
 
 
 def _wave_totals(host):

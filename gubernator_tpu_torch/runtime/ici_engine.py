@@ -21,7 +21,8 @@ one process:
   replica axis instead of gRPC.
 
 This file adds only what is policy, not topology: the sync cadence (the
-thread, the overflow and backlog counters, the full-tick backstop) and
+thread, the overflow and backlog counters, the full-tick backstop, the
+tick's histograms, flight-recorder record and watchdog beat) and
 `inject_globals`, which lands an authoritative push on every replica.
 A tick runs under the engine's lock and guard on its stream, after every
 wave dispatched before it, and reads back one (D, 4) `diag` behind one
@@ -42,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import threading
+import time
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -107,6 +109,10 @@ class IciEngineConfig:
     page_demote_interval_s: float = 2.0
     page_free_target: int = 1
     pipeline_depth: int = 2  # flushes in flight, as in EngineConfig
+    # Telemetry, as in EngineConfig: the hot-key sketch's entries and
+    # the per-answer stage breakdown.
+    hotkeys_k: int = 128
+    stage_metadata: bool = False
 
 
 class IciEngine(MeshEngine):
@@ -185,8 +191,11 @@ class IciEngine(MeshEngine):
         enqueued under the engine's lock and guard on its stream, then
         its `diag` read back behind one event, after the lock is
         released. Every `full_tick_every`-th capped tick merges the whole
-        table instead (the backstop)."""
+        table instead (the backstop). Feeds the tick's histograms
+        (`ici_tick_duration`, `ici_tick_groups`) and the flight recorder,
+        as the JAX engine's tick does."""
         now = self.now_fn()
+        t0 = time.perf_counter()
         rt = self._rtier
         with self._lock, self.topo.dispatch_guard(), self._on_stream():
             sync = rt.sync
@@ -204,6 +213,16 @@ class IciEngine(MeshEngine):
             self.overflow_keys = int(d[:, 0].sum())
             self.overflow_drops += int(d[:, 1].sum())
             self.sync_backlog = int(d[:, 2].max())
+        dur = time.perf_counter() - t0
+        groups = int(d[:, 3].max())
+        em = self.metrics
+        em.ici_tick_duration.observe(dur)
+        em.ici_tick_groups.observe(groups)
+        em.recorder.record(
+            path="ici-sync", layout=self.cfg.layout, groups=groups,
+            backlog=self.sync_backlog, overflow_keys=self.overflow_keys,
+            dur_us=int(dur * 1e6), trace_id="",
+        )
 
     def inject_globals(self, globals_) -> None:
         """Apply an authoritative UpdatePeerGlobals push (objects with
@@ -252,6 +271,9 @@ class IciEngine(MeshEngine):
         row) and the loop goes on: without ticks the replicas stop
         converging."""
         while not self._stop_sync.wait(self.cfg.sync_wait_s):
+            wd = self.watchdog
+            if wd is not None:
+                wd.beat("ici-sync", period_s=self.cfg.sync_wait_s)
             try:
                 self.sync_now()
                 self._sync_errors = 0

@@ -1,8 +1,11 @@
 """Columnar serving edge: bytes -> columns -> kernel -> bytes.
 
 The port of `gubernator_tpu/service/fastpath.py` for a standalone node
-(every key owned locally: no peer picker, no GLOBAL or region manager,
-no decision recorder; those come with the peer slice). It serves a
+(every key owned locally: no peer picker, no GLOBAL or region manager;
+those come with the peer slice). A served call is counted as the object
+path counts it (`getratelimit_counter{calltype="local"}`) and its
+decisions recorded with path `fastpath` (`count_metrics`,
+`record_provenance`). It serves a
 whole GetRateLimits call with no per-item Python: the native wire
 parse (`wire.py`), `check_columns` on the engine (one hash call, waves
 assigned with array operations, one launch per wave), the native
@@ -25,6 +28,9 @@ Fallback triggers (try_serve returns None):
 GLOBAL items on IciEngine keep their bit and go to its replica tier
 through `check_columns`, as on the object path.
 
+The engine's `stage_metadata` turns the edge off: its per-answer
+diagnostics are the object path's.
+
 TableCommittedError is re-raised, never turned into a fallback: a
 silent fallback would apply the committed hits twice.
 """
@@ -40,7 +46,8 @@ from gubernator_tpu_torch.api.keys import key_hash128_batch_raw
 from gubernator_tpu_torch.api.types import MAX_BATCH_SIZE, Behavior
 from gubernator_tpu_torch.runtime.engine import TableCommittedError
 
-__all__ = ["MAX_BATCH_SIZE", "enabled", "try_serve", "merge_mixed"]
+__all__ = ["MAX_BATCH_SIZE", "enabled", "try_serve", "merge_mixed", "count_metrics",
+           "record_provenance"]
 
 _SLOW_BEHAVIOR = int(Behavior.DURATION_IS_GREGORIAN)
 _GLOBAL = int(Behavior.GLOBAL)
@@ -58,7 +65,34 @@ def enabled(svc) -> bool:
         and getattr(svc, "fast_edge", False)
         and wire.available()
         and hasattr(svc.engine, "check_columns")
+        # stage_metadata promises per-answer diagnostics that only the
+        # object path attaches: a diagnostics mode trades the edge away
+        and not getattr(getattr(svc.engine, "cfg", None), "stage_metadata", False)
     )
+
+
+def count_metrics(svc, n: int) -> None:
+    """Count `n` columnar-served items as the object path counts them:
+    a standalone node owns every key, GLOBAL ones too, so every item is
+    calltype "local"."""
+    m = getattr(svc, "_m_local", None)
+    if m is not None:
+        m.inc(n)
+
+
+def record_provenance(svc, cols, out, positions) -> None:
+    """Record the columnar decisions (path `fastpath`, staleness 0) in
+    the service's DecisionRecorder: sums over the status column, one
+    sampled ring row per call, its key built only for that lane."""
+    rec = getattr(svc, "recorder", None)
+    if rec is None:
+        return
+    status, _limit, remaining, _reset = out
+
+    def sample_key(j):
+        return wire.req_from_columns(cols, int(positions[j])).hash_key()
+
+    rec.record_columnar("fastpath", status, remaining, sample_key=sample_key)
 
 
 def try_serve(svc, data: bytes):
@@ -112,6 +146,8 @@ def try_serve(svc, data: bytes):
             return None
         if out is None:
             return None
+        count_metrics(svc, cols.n)
+        record_provenance(svc, cols, out, np.arange(cols.n))
         return wire.build_responses(*out)
     # Gregorian lanes leave the columnar set and come back spliced
     # through merge_mixed, decided by the object path. Their request
@@ -130,6 +166,8 @@ def try_serve(svc, data: bytes):
         return None
     if out is None:
         return None
+    count_metrics(svc, len(local_pos))
+    record_provenance(svc, cols, out, local_pos)
     return ("mixed", cols.n, local_pos, out, other_reqs)
 
 

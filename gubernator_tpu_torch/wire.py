@@ -323,13 +323,19 @@ def varint(v: int) -> bytes:
     return bytes(out)
 
 
+def _len_field(tag: int, payload: bytes) -> bytes:
+    return bytes([tag]) + varint(len(payload)) + payload
+
+
 def response_body(r) -> bytes:
     """One RateLimitResp message (status 1, limit 2, remaining 3,
-    reset_time 4, error 5), proto3 zero values omitted, as protobuf's
-    SerializeToString gives it. The answers this package serves carry no
-    metadata; one that does is refused rather than cut."""
-    if r.metadata:
-        raise ValueError("response metadata is not encoded by this package")
+    reset_time 4, error 5, metadata 6), proto3 zero values omitted, as
+    protobuf's SerializeToString gives it. Metadata (the answers of
+    `stage_metadata`) is a map<string, string>: one entry (key 1,
+    value 2) per item, in sorted key order, which is protobuf's
+    deterministic order (its default order is its hash table's, so
+    bytes with metadata equal protobuf's decoded, not byte for byte). A
+    key or value that is not a str is refused, as protobuf refuses it."""
     out = bytearray()
     for tag, v in ((0x08, int(r.status)), (0x10, int(r.limit)),
                    (0x18, int(r.remaining)), (0x20, int(r.reset_time))):
@@ -337,9 +343,13 @@ def response_body(r) -> bytes:
             out.append(tag)
             out += varint(v)
     if r.error:
-        err = r.error.encode("utf-8")
-        out.append(0x2A)
-        out += varint(len(err)) + err
+        out += _len_field(0x2A, r.error.encode("utf-8"))
+    for k in sorted(r.metadata or ()):
+        v = r.metadata[k]
+        if not isinstance(k, str) or not isinstance(v, str):
+            raise ValueError(f"response metadata must map str to str: {k!r}: {v!r}")
+        out += _len_field(0x32, _len_field(0x0A, k.encode("utf-8"))
+                          + _len_field(0x12, v.encode("utf-8")))
     return bytes(out)
 
 

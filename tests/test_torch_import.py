@@ -1,5 +1,6 @@
 """The port stands alone: it imports torch, numpy and the standard
-library, never jax and nothing of `gubernator_tpu`."""
+library, never jax, nothing of `gubernator_tpu`, and not
+prometheus_client (the port renders its own exposition)."""
 
 import ast
 import subprocess
@@ -29,11 +30,13 @@ def _sources():
 
 def test_imports_with_jax_and_reference_package_blocked():
     """Every module of the package imports in a fresh interpreter where
-    `import jax` and `import gubernator_tpu` fail."""
+    `import jax`, `import gubernator_tpu` and `import prometheus_client`
+    fail."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['gubernator_tpu'] = None\n"
+        "sys.modules['prometheus_client'] = None\n"
         "import importlib\n"
         f"for m in {_port_modules()!r}:\n"
         "    importlib.import_module(m)\n"
@@ -50,8 +53,9 @@ def test_imports_with_jax_and_reference_package_blocked():
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_no_jax_or_reference_package(path):
-    """No import statement names jax or gubernator_tpu (the port keeps
-    its own copies of what it needs)."""
+    """No import statement names jax, gubernator_tpu or
+    prometheus_client (the port keeps its own copies of what it
+    needs)."""
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -62,7 +66,7 @@ def test_source_imports_no_jax_or_reference_package(path):
             continue
         for n in names:
             top = n.split(".")[0]
-            assert top not in ("jax", "jaxlib", "gubernator_tpu"), (
+            assert top not in ("jax", "jaxlib", "gubernator_tpu", "prometheus_client"), (
                 f"{path}:{node.lineno} imports {n}"
             )
 
@@ -87,15 +91,22 @@ def test_source_imports_no_jax_or_reference_package(path):
     "gubernator_tpu_torch.parallel.ici",
     "gubernator_tpu_torch.store",
     "gubernator_tpu_torch.store.store",
+    "gubernator_tpu_torch.metrics",
+    "gubernator_tpu_torch.runtime.telemetry",
+    "gubernator_tpu_torch.runtime.watchdog",
+    "gubernator_tpu_torch.utils.devicemem",
+    "gubernator_tpu_torch.service.admission",
 ])
 def test_slice_modules_are_checked(module):
     """The narrow layout, the paged table, the pager, the bench, the
     scan and sharded wrappers, the mesh, the topologies, the mesh
     engine, the kernel ablation tool, the wire path, the columnar edge,
     the bytes serving core, the pipelined engine, the table scans, the
-    inject, the GLOBAL replica tier and the Store and Loader seams are
-    among the modules imported above with jax and gubernator_tpu
-    blocked."""
+    inject, the GLOBAL replica tier, the Store and Loader seams, and
+    the observability core (the metrics registry with its exposition,
+    the flight recorder, the watchdog, device memory, decision
+    provenance) are among the modules imported above with jax,
+    gubernator_tpu and prometheus_client blocked."""
     assert module in _port_modules()
 
 

@@ -22,10 +22,12 @@ import dataclasses
 import random
 
 import jax
+import numpy as np
 import pytest
 
 import gubernator_tpu.store.store as jst
 from gubernator_tpu.api.types import RateLimitReq as JReq
+from gubernator_tpu.parallel import ici as jici
 from gubernator_tpu.runtime.ici_engine import IciEngine as JIciEngine
 from gubernator_tpu.runtime.ici_engine import IciEngineConfig as JIciConfig
 from gubernator_tpu.service.grpc_service import serve_get_rate_limits_bytes as jserve
@@ -403,3 +405,72 @@ def test_ici_store_matches_jax_mesh_property(paged, jax_ici):
 def _fast(svc):
     svc.fast_edge = True
     return svc
+
+
+GLOBAL = 2
+SYNC_COUNTERS = ("overflow_keys", "overflow_drops", "sync_backlog", "full_ticks")
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["flat", "paged"])
+def test_ici_global_with_store_matches_jax(paged, jax_ici):
+    """GLOBAL calls with a Store attached (the replica tier beside the
+    store path): seeded calls over 40 keys, 40% of the items GLOBAL,
+    half the keys already in the store, a sync tick after every second
+    call. Every answer, the store's entries and its get and change
+    counts, the sync counters, the replica stack (table, pending, tick)
+    and the sharded snapshot with its key strings equal the JAX
+    IciEngine's. Replica lanes never persist (both packages)."""
+    clock = Clock()
+    peng, jeng = _ici_pair(jax_ici, paged, clock)
+    # the module's JAX engine keeps the clock of the test that built it
+    jeng_clock, jeng.now_fn = jeng.now_fn, clock
+    jeng.ici_state = jici.create_ici_state(jeng.mesh, MESH["num_slots"], MESH["replica_ways"],
+                                           layout=jeng.cfg.layout)
+    jeng._capped_ticks = 0
+    jeng.overflow_keys = jeng.overflow_drops = jeng.sync_backlog = jeng.full_ticks = 0
+    pstore, jstore = pst.MemoryStore(), jst.MemoryStore()
+    for m, st in ((pst, pstore), (jst, jstore)):
+        for i in range(0, 40, 2):
+            st.data[f"sf_g{i}"] = m.ItemSnapshot(
+                key=f"sf_g{i}", limit=10, duration=60_000, remaining=i % 10,
+                stamp=NOW - 100, expire_at=NOW + 60_000)
+    pst.attach_store(peng, pstore)
+    jst.attach_store(jeng, jstore)
+    rng = random.Random(12 + paged)
+    try:
+        for c in range(6):
+            reqs = [dict(name="sf", unique_key=f"g{rng.randrange(40)}",
+                         hits=rng.choice([0, 1, 1, 2, 5]), limit=rng.choice([5, 10, 100]),
+                         duration=60_000, algorithm=int(rng.random() < 0.3),
+                         behavior=(GLOBAL if rng.random() < 0.4 else 0)
+                         | rng.choice([0, 0, 0, RESET, DRAIN]))
+                    for _ in range(30)]
+            got = [[(x.status, x.limit, x.remaining, x.reset_time, x.error)
+                    for x in eng.check_batch([Req(**kw) for kw in reqs])]
+                   for eng, Req in ((jeng, JReq), (peng, RateLimitReq))]
+            assert got[0] == got[1], c
+            assert _state(pstore) == _state(jstore), c
+            clock.ms += 13
+            if c % 2:
+                peng.sync_now()
+                jeng.sync_now()
+                assert [getattr(peng, k) for k in SYNC_COUNTERS] == \
+                    [getattr(jeng, k) for k in SYNC_COUNTERS], c
+        assert peng.stats()["replica_waves"] > 0 and peng.stats()["store_injected"] > 0
+        assert all(not k.startswith("sf_g") or k in pstore.data for k in jstore.data)
+        ps_, js_ = peng.ici_state, jeng.ici_state
+        for name in ("table", "pending", "tick"):
+            a = getattr(ps_, name)
+            a = (a.data if name == "table" else a).numpy()
+            r = getattr(js_, name)
+            r = np.asarray(r.data if name == "table" else r)
+            assert a.dtype == r.dtype and np.array_equal(a, r), name
+        ps, js = peng.snapshot(), jeng.snapshot()
+        assert ps["key_strings"] == js["key_strings"]
+        for f in js:
+            if f != "key_strings":
+                assert (ps[f] == js[f]).all(), f
+    finally:
+        peng.close()
+        jeng.store = None
+        jeng.now_fn = jeng_clock

@@ -228,8 +228,29 @@ def test_object_encoder_matches_protobuf(seed):
 
 
 def test_object_encoder_refuses_metadata():
-    with pytest.raises(ValueError, match="metadata"):
-        wire.encode_responses([RateLimitResp(metadata={"owner": "x"})])
+    """Answers carry metadata under `stage_metadata` (stage_breakdown_us,
+    decision_path): the encoder writes the map in sorted key order
+    (protobuf's deterministic order), which protobuf decodes to the same
+    message, and refuses an entry that is not str to str, as protobuf
+    does."""
+    md = {"stage_breakdown_us": "queue=1,assemble=20", "decision_path": "owner",
+          "decision_staleness_ms": "0", "é": "", "": "v"}
+    r = RateLimitResp(status=1, limit=5, remaining=2, reset_time=7, error="e", metadata=md)
+    data = wire.encode_responses([r, RateLimitResp(metadata={"owner": "x"})])
+    out = pb.pb.GetRateLimitsResp.FromString(data).responses
+    assert dict(out[0].metadata) == md and dict(out[1].metadata) == {"owner": "x"}
+    assert (out[0].status, out[0].limit, out[0].remaining, out[0].error) == (1, 5, 2, "e")
+    # without the empty key (whose place protobuf's order leaves to its
+    # own comparator), byte for byte protobuf's deterministic bytes
+    md.pop("")
+    want = pb.pb.GetRateLimitsResp()
+    want.responses.append(pb.resp_to_pb(r))
+    want.responses.append(pb.resp_to_pb(RateLimitResp(metadata={"owner": "x"})))
+    assert wire.encode_responses([r, RateLimitResp(metadata={"owner": "x"})]) == \
+        want.SerializeToString(deterministic=True)
+    for bad in ({"owner": 5}, {7: "x"}):
+        with pytest.raises(ValueError, match="metadata"):
+            wire.encode_responses([RateLimitResp(metadata=bad)])
 
 
 def test_native_and_encoded_runs_concatenate():
