@@ -125,7 +125,8 @@ Phases, for each size:
    CPU reference, no columnar flush; its decisions/s is the edge's
    served rate for this traffic.
 10. pipeline: phase 5's object path at pipeline_depth 1 and 2, in turns
-   1, 2, 2, 1, on every engine of phase 9 (same calls, frozen clock):
+   1, 2, 2, 1 (1, 2 on the paged engines at 10M), on every engine of
+   phase 9 (same calls, frozen clock):
    responses and snapshot equal to the CPU engine's at both depths,
    launches = waves; per run the most flushes in flight (from the end
    of a flush's dispatch to the end of its completion, as the JAX
@@ -302,6 +303,43 @@ watchdog, device memory), with no profiler, after every exact count:
    the garbage collections; every item answered without an error, one
    launch per wave.
 
+Then the overload control plane and the SLO observatory
+(service/overload.py, service/slo.py), last, with no profiler in this
+process:
+
+25. overload, at 1M (fused): (1) the plane armed as the JAX daemon arms
+   it (a Watchdog, an SloObservatory sampling every 0.5 s, an
+   IntakeGovernor of limit 8,192 and target 20 ms on the engine, the
+   brownout ladder every 0.25 s), the main path's calls as objects on a
+   DeviceEngine and an IciEngine of 8 shards, the collector held off:
+   answers and table equal to the CPU engine's, one launch per wave, no
+   shed, the ladder and the sampler beating, the ladder at level 0 (on
+   the mesh it may move on the shard-balance SLO alone: the Zipf head
+   skews the shards' decisions); (2) on each, expired deadlines through
+   check_async and check_bulk, and live ones expired at the pump's
+   pickup, answered with the JAX package's refusal and no flush, wave
+   or launch; a mixed bulk serves its live members; the shed counts of
+   `overload_debug_info()` equal the exposition's; (3) the flood
+   (tools/jobs/45_overload_soak.py's shape, in process, on a
+   DeviceEngine whose flushes take at most 4 items): 4 closed-loop good
+   tenants of 2 items a call, then one open-loop flood tenant of
+   per-item check_async at 10x their offered rate for 8 s, its sheds
+   re-sent once through a RetryBudget, intake limit 256, target 15 ms,
+   the ladder every 0.1 s, the sampler on, fresh keys each in a group of
+   the image that holds no row: the queue depth stays within the limit,
+   every admitted answer is UNDER_LIMIT, every shed is typed and
+   counted, admits and sheds add up to the answers, the shed counts of
+   debug_info equal the exposition's, and the table equals a CPU
+   engine's fed exactly the admitted items; goodput and p50/p99 of the
+   good tenants against their baseline, the levels the ladder reached
+   and its level when the flood's last answer is in are printed, not
+   gated; (4) the host cost per item of the governor alone and of the
+   whole plane armed and idle, against unarmed, in turns on one engine,
+   answers equal every turn; (5) the SLO sampler's
+   passes (sample_once, evaluate, metrics_sync, render, 100 times over a
+   warmed engine) under torch.profiler in a fresh process of this script
+   (`--slo-op-counts`): no device operation but the marker fills.
+
 Then a summary line with the wall time, the card's name and power limit
 as nvidia-smi prints them, the kernel table line, and the last line
 `{"ok": true, "device": {"platform": "gpu", ...}}`. Any failure raises
@@ -337,7 +375,14 @@ if not torch.cuda.is_available():
 
 from gubernator_tpu_torch import bench  # noqa: E402
 from gubernator_tpu_torch.api.keys import key_hash128_batch  # noqa: E402
-from gubernator_tpu_torch.api.types import MAX_BATCH_SIZE, RateLimitReq, RateLimitResp  # noqa: E402
+from gubernator_tpu_torch.api.types import (  # noqa: E402
+    ERR_OVERLOADED,
+    MAX_BATCH_SIZE,
+    RETRY_AFTER_MD_KEY,
+    RateLimitReq,
+    RateLimitResp,
+    is_retryable_error,
+)
 from gubernator_tpu_torch.ops import _build, cuda_decide, fused, narrow  # noqa: E402
 from gubernator_tpu_torch.ops.admission import admission_oracle  # noqa: E402
 from gubernator_tpu_torch.ops.census import census_oracle  # noqa: E402
@@ -372,10 +417,19 @@ from gubernator_tpu_torch.store import (  # noqa: E402
     load_engine,
     save_engine,
 )
+from gubernator_tpu_torch.service.overload import (  # noqa: E402
+    DEADLINE_MD_KEY,
+    ERR_DEADLINE_EXPIRED,
+    SHED_REASONS,
+    IntakeGovernor,
+    OverloadManager,
+    RetryBudget,
+)
 from gubernator_tpu_torch.service.server import (  # noqa: E402
     V1Service,
     serve_get_rate_limits_bytes,
 )
+from gubernator_tpu_torch.service.slo import SloObservatory, parse_slo_specs  # noqa: E402
 from gubernator_tpu_torch.utils import clock as _clock  # noqa: E402
 
 
@@ -2049,6 +2103,11 @@ def phase_edge_main_path(size: Size, reference):
 # the pump's dispatch of a flush (4-8 ms at 1M), so that the device and
 # not the host is the bottleneck.
 PIPE_HOLD_CYCLES = 40_000_000
+# Pipeline depths per engine, in turns; the last turn is the held run.
+# The paged (10M) engines take one turn a depth: each of their runs costs
+# about 6.5 s on the card, and the whole script has a time limit.
+PIPE_TURNS = (1, 2, 2, 1, 2)
+PIPE_TURNS_PAGED = (1, 2, 2)
 
 
 class _StageSpans:
@@ -2092,8 +2151,9 @@ class _StageSpans:
 
 def phase_pipeline(size: Size, reference):
     """The object path (`V1Service.get_rate_limits`) at pipeline_depth 1
-    and 2, in turns (1, 2, 2, 1: the host's noise between runs is as
-    large as the effect) on the same calls and frozen clock, for every
+    and 2, in turns (1, 2, 2, 1 on a flat table: the host's noise between
+    runs is as large as the effect; 1, 2 on a paged one) on the same
+    calls and frozen clock, for every
     engine of the size (DeviceEngine per configuration, IciEngine per
     layout): every run's responses and snapshot equal to the CPU
     engine's (the main path's reference); per run the most flushes in
@@ -2110,8 +2170,9 @@ def phase_pipeline(size: Size, reference):
     results = {}
     with _clock.freeze(NOW) as clk:
         for name, layout, paged, mesh in _edge_configs(size):
-            for turn, depth in enumerate((1, 2, 2, 1, 2)):
-                held = turn == 4
+            turns = PIPE_TURNS_PAGED if paged else PIPE_TURNS
+            for turn, depth in enumerate(turns):
+                held = turn == len(turns) - 1
                 eng = _edge_engine(size, layout, paged, mesh, pipeline_depth=depth)
                 try:
                     eng.restore(snap)
@@ -4294,6 +4355,614 @@ def phase_latency(rng, size: Size, reference, card: str):
     return results
 
 
+# ---------------------------------------------------------------------------
+# the overload control plane and the SLO observatory
+
+OVL_LIMIT = 8192  # the JAX package's intake limit (GUBER_INTAKE_LIMIT)
+OVL_TARGET_MS = 20.0  # its CoDel target (GUBER_INTAKE_TARGET_MS)
+OVL_LADDER_S = 0.25  # the ladder's interval
+OVL_SLO_S = 0.5  # the SLO sampler's interval: 5 s by default, shortened here
+OVL_DEADLINE_ITEMS = 16
+# The flood (tools/jobs/45_overload_soak.py's shape, in process): the
+# engine's appetite per flush cut to 4 items so that a Python flood can
+# stand a queue, the soak's intake limit and target, closed-loop good
+# tenants and one open-loop flood tenant at 10x their offered rate.
+FLOOD_ENGINE = dict(batch_wait_s=0.004, batch_limit=4)
+FLOOD_LIMIT = 256
+FLOOD_TARGET_MS = 15.0
+FLOOD_LADDER_S = 0.1
+FLOOD_HYSTERESIS = 10
+FLOOD_WORKERS = 4
+FLOOD_BATCH = 2
+FLOOD_X = 10.0
+FLOOD_OUTSTANDING = 4000
+FLOOD_WARM_S = 1.0
+FLOOD_BASE_S = 3.0
+FLOOD_S = 8.0
+FLOOD_GOOD_KEYS = 256
+FLOOD_KEYS = 2048
+FLOOD_HIT_LIMIT = 1_000_000_000
+FLOOD_DURATION_MS = 600_000
+COST_TURNS = ("off", "gov", "on", "on", "gov", "off") * 2
+SLO_OP_PASSES = 100
+
+
+class _Plane:
+    """The overload plane armed on one engine and its service as the JAX
+    daemon arms it (its daemon.py: a Watchdog on the engine, handed to
+    the sampler and the ladder, an SloObservatory on the service, an
+    IntakeGovernor on the engine, the OverloadManager ladder on the
+    service), threads started. `stop()` stops them and leaves engine and
+    service unarmed."""
+
+    def __init__(self, eng, svc, *, limit=OVL_LIMIT, target_ms=OVL_TARGET_MS,
+                 ladder_s=OVL_LADDER_S, slo_s=OVL_SLO_S, hysteresis=8):
+        self.eng, self.svc = eng, svc
+        self.wd = Watchdog(stall_ms=WATCHDOG_STALL_MS)
+        eng.watchdog = self.wd
+        self.slo = SloObservatory(svc, interval_s=slo_s, specs=parse_slo_specs(""),
+                                  watchdog=self.wd)
+        svc.slo = self.slo
+        self.gov = IntakeGovernor(limit=limit, target_ms=target_ms, metrics=svc.metrics,
+                                  recorder=svc.recorder)
+        self.mgr = OverloadManager(svc, self.gov, slo=self.slo, watchdog=self.wd,
+                                   interval_s=ladder_s, hysteresis=hysteresis)
+        svc.overload = self.mgr
+        eng.overload = self.gov
+        self.wd.start()
+        self.slo.start()
+        self.mgr.start()
+
+    def stop(self) -> None:
+        self.mgr.stop()
+        self.slo.stop()
+        self.wd.stop()
+        self.eng.overload = self.eng.watchdog = None
+        self.svc.overload = self.svc.slo = None
+
+
+def _armed_service(eng, **kw):
+    """A V1Service with a Metrics wired to the engine, and the plane
+    armed on both."""
+    m = Metrics()
+    wire_engine_telemetry(m, eng)
+    svc = V1Service(eng, metrics=m)
+    return svc, _Plane(eng, svc, **kw)
+
+
+def _serve_idle(svc, calls, clk):
+    """`_serve` with the collector held off: a gen-2 collection (0.15-0.35
+    s on this path, PERF.md section 5) while a bulk waits would be a
+    standing queue to the CoDel controller, which an idle run must not
+    have."""
+    gc.collect()
+    gc.disable()
+    try:
+        return _serve(svc, calls, clk)
+    finally:
+        gc.enable()
+
+
+def _shed_counts(rendered) -> dict:
+    return {r: rendered.get(f'gubernator_intake_shed_counter{{reason="{r}"}}', 0.0)
+            for r in SHED_REASONS}
+
+
+def _deadline_checks(eng, gov) -> dict:
+    """Expired deadlines through check_async and check_bulk, refused at
+    admit; live deadlines refused at the pump's pickup (the verdict
+    forced, as the JAX package's test forces it); then a bulk of one
+    expired, one deadline-free and one live member. Returns the counts
+    and the checks' results."""
+    now = _clock.now_ms()
+    dead = {DEADLINE_MD_KEY: str(now - 5)}
+    live = {DEADLINE_MD_KEY: str(now + 60_000)}
+
+    def mk(k, md):
+        return RateLimitReq(name="overload", unique_key=f"dl:{k}", hits=1, limit=10,
+                            duration=60_000, metadata=dict(md))
+
+    st0, l0 = eng.stats(), sum(cuda_decide.CONFIG_LAUNCHES.values())
+    shed0 = gov.snapshot()["shed"]["deadline_expired"]
+    n = OVL_DEADLINE_ITEMS
+    refused = [eng.check_async(mk(i, dead)).result(timeout=60) for i in range(n)]
+    refused += eng.check_bulk([mk(i, dead) for i in range(n)]).result(timeout=60)
+    gov.deadline_expired = lambda _dl: True
+    try:
+        refused += [eng.check_async(mk(f"p{i}", live)).result(timeout=60) for i in range(4)]
+        refused += eng.check_bulk([mk(f"p{i}", live) for i in range(4)]).result(timeout=60)
+    finally:
+        del gov.deadline_expired
+    st1, l1 = eng.stats(), sum(cuda_decide.CONFIG_LAUNCHES.values())
+    mixed = eng.check_bulk([mk("m0", dead), mk("m1", {}), mk("m2", live)]).result(timeout=60)
+    st2, l2 = eng.stats(), sum(cuda_decide.CONFIG_LAUNCHES.values())
+    return {
+        "refused": len(refused),
+        "refused_as_jax": sum(r.error == ERR_DEADLINE_EXPIRED
+                              and r.metadata == {"decision_path": "shed"} for r in refused),
+        "flushes_waves_launches_during_refusals": [
+            st1["flushes"] - st0["flushes"], st1["waves"] - st0["waves"], l1 - l0],
+        "mixed_bulk": [r.error or f"remaining={r.remaining}" for r in mixed],
+        "mixed_ok": (mixed[0].error == ERR_DEADLINE_EXPIRED
+                     and mixed[1].error == mixed[2].error == ""
+                     and mixed[1].remaining == mixed[2].remaining == 9),
+        "mixed_flushes": st2["flushes"] - st1["flushes"],
+        "mixed_waves_launches": [st2["waves"] - st1["waves"], l2 - l1],
+        "deadline_sheds": gov.snapshot()["shed"]["deadline_expired"] - shed0,
+    }
+
+
+def _overload_idle(size: Size, reference, clk, mesh: bool, card: str) -> dict:
+    """Steps 1-2 of phase_overload on one engine."""
+    snap, calls, want, csnap = reference
+    name = cuda_decide.sharded_name("fused") if mesh else cuda_decide.config_name("fused", False)
+    eng = _edge_engine(size, "fused", False, mesh)
+    plane = None
+    try:
+        eng.restore(snap)
+        svc, plane = _armed_service(eng)
+        sync()
+        cuda_decide.reset_launches()
+        got, secs, _ = _serve_idle(svc, calls, clk)
+        launches = dict(cuda_decide.CONFIG_LAUNCHES)
+        st = eng.stats()
+        esnap = eng.snapshot()
+        idle = svc.overload_debug_info()
+        beats = _wait_beats(plane.wd, {"engine-pump", "engine-complete", "overload-ladder",
+                                       "slo-sampler"}, 3.0)
+        deadlines = _deadline_checks(eng, plane.gov)
+        rendered = parse_exposition(svc.metrics.render().decode())
+        info = svc.overload_debug_info()
+        slo = svc.slo_debug_info()
+    finally:
+        if plane is not None:
+            plane.stop()
+        eng.close()
+    decisions = sum(len(c) for c in calls)
+    res = {"phase": "overload", "step": "armed_idle_and_deadlines", "size": size.name,
+           "kernel": name, "mesh": mesh, "intake_limit": OVL_LIMIT,
+           "target_ms": OVL_TARGET_MS, "calls": len(calls), "items": decisions,
+           "response_mismatches": sum(a != b for gc_, wc in zip(got, want)
+                                      for a, b in zip(gc_, wc)),
+           "snapshot_columns_differing": _snap_diff(esnap, csnap),
+           "flushes": st["flushes"], "waves": st["waves"], "launches": launches[name],
+           "other_kernel_launches": sum(launches.values()) - launches[name],
+           "idle_level": idle["level"], "idle_signals": idle["signals"],
+           "idle_shed": idle["intake"]["shed"],
+           "idle_hot_tenants": idle["intake"]["hot_tenants"],
+           "watchdog_beats": sorted(beats), "deadlines": deadlines,
+           "shed_debug": info["intake"]["shed"], "shed_rendered": _shed_counts(rendered),
+           "slo_ticks": slo["ticks"], "slo_slis": sorted(slo["slis"]),
+           "slo_alerting": slo["budget"]["alerting"],
+           "decisions_per_s": decisions / secs, "card": card}
+    del esnap
+    emit(res)
+    want_dl = 2 * OVL_DEADLINE_ITEMS + 8
+    if res["response_mismatches"] or res["snapshot_columns_differing"]:
+        raise AssertionError(f"{name}: armed and idle, the answers or the table differ from "
+                             "the CPU engine's")
+    if not (launches[name] == st["waves"] > 0) or res["other_kernel_launches"]:
+        raise AssertionError(f"{name}: armed and idle, kernel launches do not match the waves")
+    # The intake never stands a queue here; the ladder may still move on
+    # the mesh, where the Zipf head skews the shards' decisions past the
+    # shard-balance SLO's 1.5x and its burn is a ladder signal, as in the
+    # JAX package. A shed, or any other signal, fails.
+    sig = idle["signals"]
+    slo_only = set(sig.get("slo_fast_burn") or []) <= ({"shard-balance"} if mesh else set())
+    if (any(idle["intake"]["shed"].values()) or sig.get("intake_overloaded")
+            or sig.get("serving_stalled") or not slo_only
+            or (idle["level"] and not (mesh and sig.get("slo_fast_burn")))):
+        raise AssertionError(f"{name}: armed and idle, level {idle['level']}, signals {sig}, "
+                             f"sheds {idle['intake']['shed']}")
+    if not (deadlines["refused"] == deadlines["refused_as_jax"] == want_dl
+            and deadlines["flushes_waves_launches_during_refusals"] == [0, 0, 0]):
+        raise AssertionError(f"{name}: expired deadlines: {deadlines}")
+    w, lch = deadlines["mixed_waves_launches"]
+    if not (deadlines["mixed_ok"] and deadlines["mixed_flushes"] == 1 and w == lch > 0
+            and deadlines["deadline_sheds"] == want_dl + 1):
+        raise AssertionError(f"{name}: the mixed bulk: {deadlines}")
+    if res["shed_debug"] != res["shed_rendered"]:
+        raise AssertionError(f"{name}: shed counts {res['shed_debug']} in debug_info, "
+                             f"{res['shed_rendered']} rendered")
+    if "overload-ladder" not in beats or "slo-sampler" not in beats:
+        raise AssertionError(f"{name}: the ladder and the sampler did not beat: {sorted(beats)}")
+    return res
+
+
+def _free_group_keys(free, num_groups: int, name: str, n: int, taken: set) -> list:
+    """n keys of namespace `name`, each hashing to a group that holds no
+    row of the image (`free`) and no other chosen key (`taken`): such a
+    key's row depends on its own hits only, whatever the order."""
+    keys, start = [], 0
+    while len(keys) < n:
+        cand = [f"f{j}" for j in range(start, start + 50_000)]
+        grp = key_hash128_batch([f"{name}_{c}" for c in cand], num_groups)[2].tolist()
+        for c, g in zip(cand, grp):
+            if free[g] and g not in taken:
+                taken.add(g)
+                keys.append(c)
+                if len(keys) == n:
+                    break
+        start += 50_000
+    return keys
+
+
+def _p(lat, q) -> float:
+    return float(np.percentile(np.asarray(lat) * 1e3, q)) if lat else None
+
+
+async def _flood_drive(eng, svc, plane, good_keys, flood_keys) -> dict:
+    """The flood, on one asyncio loop (one producer thread, so the depth
+    each admit reads is the depth it leaves): FLOOD_WORKERS closed-loop
+    good tenants of FLOOD_BATCH items a call through the service; after
+    FLOOD_WARM_S and a FLOOD_BASE_S baseline, one open-loop flood tenant
+    sends per-item check_async at FLOOD_X times the good tenants'
+    offered rate for FLOOD_S, its typed sheds re-sent once through a
+    RetryBudget; the good tenants stop once the flood's outstanding
+    answers are in. Returns what it saw."""
+    st = {"acked": 0, "offered": 0, "lat": [], "good_shed": 0}
+    answers = []  # (name, key, resp) of every answer
+    stop_good = asyncio.Event()
+
+    def req(name, key):
+        return RateLimitReq(name=name, unique_key=key, hits=1, limit=FLOOD_HIT_LIMIT,
+                            duration=FLOOD_DURATION_MS)
+
+    async def good_worker(w):
+        j = w * 7
+        while not stop_good.is_set():
+            j += FLOOD_BATCH
+            ks = [good_keys[(j + i) % len(good_keys)] for i in range(FLOOD_BATCH)]
+            st["offered"] += FLOOD_BATCH
+            t0 = time.perf_counter()
+            out = await svc.get_rate_limits([req("good", k) for k in ks])
+            dt = time.perf_counter() - t0
+            ok = 0
+            for k, r in zip(ks, out):
+                answers.append(("good", k, r))
+                if r.error:
+                    st["good_shed"] += 1
+                else:
+                    ok += 1
+            if ok:
+                st["acked"] += ok
+                st["lat"].append(dt)
+
+    def window():
+        snap = dict(st, lat=list(st["lat"]))
+        st.update(acked=0, offered=0, lat=[], good_shed=0)
+        return snap
+
+    seen = {"max_depth": 0, "levels": [0]}
+    stop_sample = asyncio.Event()
+
+    def look():
+        seen["max_depth"] = max(seen["max_depth"], eng.queue_depth())
+        lv = plane.mgr.level
+        if lv != seen["levels"][-1]:
+            seen["levels"].append(lv)
+
+    async def sampler():
+        while not stop_sample.is_set():
+            look()
+            await asyncio.sleep(0.01)
+
+    workers = [asyncio.ensure_future(good_worker(w)) for w in range(FLOOD_WORKERS)]
+    sample_task = asyncio.ensure_future(sampler())
+    await asyncio.sleep(FLOOD_WARM_S)
+    window()
+    t0 = time.perf_counter()
+    await asyncio.sleep(FLOOD_BASE_S)
+    base = window()
+    base_s = time.perf_counter() - t0
+
+    rate = FLOOD_X * base["offered"] / base_s
+    budget = RetryBudget(ratio=0.1)
+    outstanding = []  # (future, key, retried)
+    fl = {"sent": 0, "retries": 0, "dropped": 0}
+
+    def send(k, retried):
+        outstanding.append((eng.check_async(req("flood", flood_keys[k % len(flood_keys)])),
+                            k, retried))
+
+    def reap(resend: bool):
+        live = []
+        for f, k, retried in outstanding:
+            if not f.done():
+                live.append((f, k, retried))
+                continue
+            r = f.result()
+            answers.append(("flood", flood_keys[k % len(flood_keys)], r))
+            if (resend and r.error and not retried and is_retryable_error(r.error)
+                    and budget.try_spend()):
+                fl["retries"] += 1
+                live.append((eng.check_async(req("flood", flood_keys[k % len(flood_keys)])),
+                             k, True))
+        outstanding[:] = live
+
+    t0 = time.perf_counter()
+    t_end, due, last = t0 + FLOOD_S, 0.0, t0
+    while True:
+        now = time.perf_counter()
+        if now >= t_end:
+            break
+        due += rate * (now - last)
+        last = now
+        k = int(due)
+        due -= k
+        for _ in range(k):
+            if len(outstanding) >= FLOOD_OUTSTANDING:
+                fl["dropped"] += 1
+                continue
+            budget.record(1)
+            send(fl["sent"], False)
+            fl["sent"] += 1
+        look()
+        reap(True)
+        await asyncio.sleep(0.02)
+    flood_s = time.perf_counter() - t0
+    under = window()
+    while outstanding:
+        reap(False)
+        await asyncio.sleep(0.01)
+    stop_good.set()
+    stop_sample.set()
+    await asyncio.gather(sample_task, *workers)
+    return {"base": base, "base_s": base_s, "under": under, "flood_s": flood_s,
+            "flood": fl, "flood_rate": rate, "budget": budget.snapshot(), "seen": seen,
+            "final_level": plane.mgr.level, "answers": answers}
+
+
+def _overload_flood(size: Size, snap, card: str) -> dict:
+    """Step 3 of phase_overload (DeviceEngine, fused)."""
+    name = cuda_decide.config_name("fused", False)
+    free = ~np.asarray(snap["used"]).reshape(size.num_groups, WAYS).any(axis=1)
+    taken = set()
+    good_keys = _free_group_keys(free, size.num_groups, "good", FLOOD_GOOD_KEYS, taken)
+    flood_keys = _free_group_keys(free, size.num_groups, "flood", FLOOD_KEYS, taken)
+    eng = _edge_engine(size, "fused", False, False, **FLOOD_ENGINE)
+    plane = None
+    try:
+        eng.restore(snap)
+        svc, plane = _armed_service(eng, limit=FLOOD_LIMIT, target_ms=FLOOD_TARGET_MS,
+                                    ladder_s=FLOOD_LADDER_S, hysteresis=FLOOD_HYSTERESIS)
+        sync()
+        cuda_decide.reset_launches()
+        with _GcPauses() as gcp:
+            run = asyncio.run(_flood_drive(eng, svc, plane, good_keys, flood_keys))
+        launches = dict(cuda_decide.CONFIG_LAUNCHES)
+        st = eng.stats()
+        gsnap = eng.snapshot()
+        info = svc.overload_debug_info()
+        slo = svc.slo_debug_info()
+        rendered = parse_exposition(svc.metrics.render().decode())
+    finally:
+        if plane is not None:
+            plane.stop()
+        eng.close()
+    answers = run.pop("answers")
+    admitted = [(n, k) for n, k, r in answers if not r.error]
+    shed = [r for _n, _k, r in answers if r.error]
+    bad_admitted = sum(not (r.status == 0 and r.limit == FLOOD_HIT_LIMIT)
+                       for _n, _k, r in answers if not r.error)
+    bad_shed = sum(not (r.error == ERR_OVERLOADED and RETRY_AFTER_MD_KEY in r.metadata)
+                   for r in shed)
+    # a CPU engine fed exactly the admitted items, in bulks
+    ceng = DeviceEngine(EngineConfig(device="cpu", num_groups=size.num_groups, ways=WAYS,
+                                     batch_size=B))
+    try:
+        ceng.restore(snap)
+        for i in range(0, len(admitted), MAX_BATCH_SIZE):
+            ceng.check_bulk([RateLimitReq(name=n, unique_key=k, hits=1, limit=FLOOD_HIT_LIMIT,
+                                          duration=FLOOD_DURATION_MS)
+                             for n, k in admitted[i:i + MAX_BATCH_SIZE]]).result(timeout=600)
+        csnap = ceng.snapshot()
+    finally:
+        ceng.close()
+    diff = _snap_diff(gsnap, csnap)
+    del gsnap, csnap
+    base, under = run["base"], run["under"]
+    goodput_base = base["acked"] / run["base_s"]
+    goodput_flood = under["acked"] / run["flood_s"]
+    shed_debug = info["intake"]["shed"]
+    res = {"phase": "overload", "step": "flood", "size": size.name, "kernel": name,
+           "intake_limit": FLOOD_LIMIT, "target_ms": FLOOD_TARGET_MS, **FLOOD_ENGINE,
+           "good_workers": FLOOD_WORKERS, "good_batch": FLOOD_BATCH,
+           "good_keys": FLOOD_GOOD_KEYS, "flood_keys": FLOOD_KEYS,
+           "goodput_baseline_per_s": goodput_base, "goodput_flood_per_s": goodput_flood,
+           "goodput_ratio": goodput_flood / goodput_base if goodput_base else None,
+           "p50_baseline_ms": _p(base["lat"], 50), "p99_baseline_ms": _p(base["lat"], 99),
+           "p50_flood_ms": _p(under["lat"], 50), "p99_flood_ms": _p(under["lat"], 99),
+           "good_offered_baseline_per_s": base["offered"] / run["base_s"],
+           "good_shed_under_flood": under["good_shed"],
+           "flood_rate_per_s": run["flood_rate"], "flood_sent": run["flood"]["sent"],
+           "flood_offered_per_s": run["flood"]["sent"] / run["flood_s"],
+           "flood_retries": run["flood"]["retries"],
+           "flood_client_dropped": run["flood"]["dropped"], "retry_budget": run["budget"],
+           "max_queue_depth": run["seen"]["max_depth"], "levels_reached": run["seen"]["levels"],
+           "max_level": max(run["seen"]["levels"]), "final_level": run["final_level"],
+           "shed_debug": shed_debug, "shed_rendered": _shed_counts(rendered),
+           "answers": len(answers), "admitted": len(admitted), "shed_answers": len(shed),
+           "admitted_not_under_limit": bad_admitted, "shed_not_typed": bad_shed,
+           "engine_requests": st["requests"], "flushes": st["flushes"], "waves": st["waves"],
+           "launches": launches[name],
+           "other_kernel_launches": sum(launches.values()) - launches[name],
+           "snapshot_columns_differing_from_cpu_fed_admitted": diff,
+           "slo_states": {e["id"]: e["state"] for e in slo["slos"]},
+           "slo_ticks": slo["ticks"], "signals": info["signals"], "gc": gcp.summary(),
+           "card": card}
+    emit(res)
+    if res["max_queue_depth"] > FLOOD_LIMIT:
+        raise AssertionError(f"flood: queue depth {res['max_queue_depth']} over the limit")
+    if diff or bad_admitted or bad_shed:
+        raise AssertionError(f"flood: table differs from a CPU engine fed the admitted items "
+                             f"({diff}), {bad_admitted} admitted answers not UNDER_LIMIT, "
+                             f"{bad_shed} sheds untyped")
+    if not (len(admitted) == st["requests"] and len(shed) == sum(shed_debug.values())):
+        raise AssertionError(f"flood: {len(admitted)} admitted, {st['requests']} served; "
+                             f"{len(shed)} shed answers, {shed_debug} counted")
+    if shed_debug != res["shed_rendered"]:
+        raise AssertionError(f"flood: shed counts {shed_debug} in debug_info, "
+                             f"{res['shed_rendered']} rendered")
+    if not (launches[name] == st["waves"] > 0) or res["other_kernel_launches"]:
+        raise AssertionError("flood: kernel launches do not match the waves")
+    return res
+
+
+def _overload_cost(size: Size, reference, clk, card: str) -> dict:
+    """Step 4 of phase_overload: the main path's calls as objects on one
+    DeviceEngine (fused, telemetry wired), its table restored each turn,
+    unarmed ("off"), with only the IntakeGovernor on `engine.overload`
+    ("gov") and with the whole plane armed and idle, its threads running
+    ("on"), in COST_TURNS, the collector held off in all: decisions/s
+    per turn, answers equal to the CPU engine's in every turn, and the
+    host us per item of the governor alone and of the plane (each
+    median's difference from "off")."""
+    snap, calls, want, _csnap = reference
+    decisions = sum(len(c) for c in calls)
+    eng = _edge_engine(size, "fused", False, False)
+    m = Metrics()
+    wire_engine_telemetry(m, eng)
+    svc = V1Service(eng, metrics=m)
+    rates = {"off": [], "gov": [], "on": []}
+    mism, sheds = 0, 0
+    try:
+        for variant in COST_TURNS:
+            eng.restore(snap)
+            plane = _Plane(eng, svc) if variant == "on" else None
+            if variant == "gov":
+                eng.overload = IntakeGovernor(limit=OVL_LIMIT, target_ms=OVL_TARGET_MS,
+                                              metrics=m, recorder=svc.recorder)
+            gov = eng.overload
+            try:
+                sync()
+                got, secs, _ = _serve_idle(svc, calls, clk)
+                if gov is not None:
+                    sheds += sum(gov.snapshot()["shed"].values())
+            finally:
+                eng.overload = None
+                if plane is not None:
+                    plane.stop()
+            mism += sum(a != b for gc_, wc in zip(got, want) for a, b in zip(gc_, wc))
+            rates[variant].append(decisions / secs)
+    finally:
+        eng.close()
+    med = {k: statistics.median(v) for k, v in rates.items()}
+    res = {"phase": "overload", "step": "cost", "size": size.name,
+           "kernel": cuda_decide.config_name("fused", False), "turns": list(COST_TURNS),
+           "decisions_per_s": rates, "median_decisions_per_s": med,
+           "gov_over_off": med["gov"] / med["off"], "on_over_off": med["on"] / med["off"],
+           "governor_host_us_per_item": 1e6 / med["gov"] - 1e6 / med["off"],
+           "plane_host_us_per_item": 1e6 / med["on"] - 1e6 / med["off"],
+           "response_mismatches": mism, "sheds": sheds, "card": card}
+    emit(res)
+    if mism or sheds:
+        raise AssertionError(f"overload cost: {mism} answers differ from the CPU engine's, "
+                             f"{sheds} sheds")
+    return res
+
+
+def slo_op_names(seed: int) -> dict:
+    """The device operations that torch.profiler records over
+    SLO_OP_PASSES passes of the SLO sampler's `sample_once`, `evaluate`,
+    `metrics_sync` and a `render()`, over a warmed DeviceEngine (fused,
+    1M keys) with the plane armed: run by phase_overload in a fresh
+    process of this script (`--slo-op-counts`), since in a long run CUPTI
+    has been seen to lose records. The engine's census and admission
+    caches are filled first, with TTLs longer than the passes."""
+    rng = np.random.default_rng(seed)
+    size = SIZES[0]
+    image = live_image(rng, size)
+    snap = {f: getattr(image, f) for f in SlotTable._fields}
+    snap["key_strings"] = {}
+    del image
+    calls = smoke_calls(rng, size.live_keys)[:2]
+    _device_ops(lambda: None, 0)
+    with _clock.freeze(NOW) as clk:
+        eng = _edge_engine(size, "fused", False, False, census_ttl_s=3600.0,
+                           admission_ttl_s=3600.0)
+        plane = None
+        try:
+            eng.restore(snap)
+            svc, plane = _armed_service(eng)
+            _serve(svc, calls, clk)
+            eng.table_census(max_age_s=0)
+            eng.admission_snapshot(max_age_s=0)
+            plane.slo.sample_once()
+            svc.metrics.render()
+            sync()
+
+            def passes():
+                for _ in range(SLO_OP_PASSES):
+                    plane.slo.sample_once()
+                    plane.slo.evaluate()
+                    plane.slo.metrics_sync(svc.metrics)
+                    svc.metrics.render()
+
+            t0 = time.perf_counter()
+            ops = _device_ops(passes, 1)
+            secs = time.perf_counter() - t0
+            rings = plane.slo.rings.names()
+        finally:
+            if plane is not None:
+                plane.stop()
+            eng.close()
+    return {"ops": ops, "passes": SLO_OP_PASSES, "seconds": secs, "rings": rings}
+
+
+def slo_op_names_child(seed: int) -> dict:
+    """`slo_op_names` in a fresh process of this script."""
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--slo-op-counts", "--seed", str(seed)],
+        capture_output=True, text=True, timeout=600,
+    )
+    if child.returncode:
+        raise AssertionError(f"--slo-op-counts exited {child.returncode}: {child.stderr[-4000:]}")
+    return json.loads(child.stdout.strip().splitlines()[-1])
+
+
+def phase_overload(size: Size, reference, card: str, seed: int) -> dict:
+    """The overload control plane and the SLO observatory on the 1M flat
+    size (fused). 1: armed as the JAX daemon arms it (limit 8,192,
+    target 20 ms, ladder every 0.25 s, SLO sampler every 0.5 s) and idle,
+    the main path's calls as objects on a DeviceEngine and an IciEngine
+    of 8 shards: answers and table equal to the CPU engine's, no shed,
+    level 0, one launch per wave, the ladder and the sampler beating.
+    2: on each, expired deadlines through check_async and check_bulk
+    refused with the JAX package's answer and no flush, wave or launch;
+    the pickup-time expiry likewise; a mixed bulk serves its live
+    members; shed counts equal in debug_info and the exposition. 3: the
+    flood (`_flood_drive`, printed, not gated on its rates): queue depth
+    within the intake limit, every admitted answer UNDER_LIMIT, every
+    shed typed, sheds and admits adding up, shed counts equal in
+    debug_info and the exposition, and the table equal to a CPU engine's
+    fed exactly the admitted items (fresh keys, each in a group that
+    holds no other row, so that order does not matter). 4: the
+    governor's host cost per item. 5: the sampler's device operations,
+    in a fresh process: none but the marker fills."""
+    out = {}
+    with _clock.freeze(NOW) as clk:
+        for mesh in (False, True):
+            out[mesh] = _overload_idle(size, reference, clk, mesh, card)
+            free_device()
+        out["flood"] = _overload_flood(size, reference[0], card)
+        free_device()
+        out["cost"] = _overload_cost(size, reference, clk, card)
+        free_device()
+    child = slo_op_names_child(seed)
+    ops = child.pop("ops")
+    others = [o for o in ops if "FillFunctor" not in o]
+    res = {"phase": "overload", "step": "slo_ops", "size": size.name,
+           "fills_seen": len(ops) - len(others), "other_device_ops": others, **child,
+           "card": card}
+    emit(res)
+    if others or not ops:
+        raise AssertionError(f"the SLO sampler's passes recorded device operations: {others} "
+                             f"(fills seen: {res['fills_seen']})")
+    out["slo_ops"] = res
+    return out
+
+
 def run_global(rng, size: Size, reference, card: str):
     """The GLOBAL replica tier's phases. Returns {replica kernel name:
     (max err, times line)} and {layout: launches on the main path}."""
@@ -4449,6 +5118,10 @@ def main() -> int:
     ap.add_argument("--store-op-counts", action="store_true",
                     help="print the store ops' device operations per call (store_ops "
                          "runs this in a fresh process) and exit")
+    ap.add_argument("--slo-op-counts", action="store_true",
+                    help="print the device operations of the SLO sampler's passes over a "
+                         "warmed 1M engine (the overload phase runs this in a fresh "
+                         "process) and exit")
     ap.add_argument("--scan-op-counts", action="store_true",
                     help="print the device operations of every scan configuration's "
                          "scans (scan_times checks them; main runs this in a fresh "
@@ -4459,6 +5132,9 @@ def main() -> int:
         return 0
     if args.scan_op_counts:
         print(json.dumps(scan_op_names(args.seed)))
+        return 0
+    if args.slo_op_counts:
+        print(json.dumps(slo_op_names(args.seed)))
         return 0
     t0 = time.perf_counter()
     rng = np.random.default_rng(args.seed)
@@ -4511,6 +5187,9 @@ def main() -> int:
         phase_metrics(size, reference, smi)
     phase_telemetry_ab(flat, flat_reference, smi)
     phase_latency(rng, flat, flat_reference, smi)
+    # the overload plane and the SLO observatory, last: no profiler in
+    # this process (its sampler trace runs in a fresh one)
+    phase_overload(flat, flat_reference, smi, args.seed)
     del size_refs, flat_reference
     entries += scans
     entries += [mesh_entry(cuda_decide.sharded_name(lay), lay, mesh_errs[cuda_decide.sharded_name(lay)],

@@ -107,6 +107,23 @@ RETRYABLE_PREFIX = "UNAVAILABLE:"
 # The engine pump is shutting down and could not serve this request.
 ERR_ENGINE_DRAINING = RETRYABLE_PREFIX + " engine draining; retry"
 
+# The engine intake governor shed this request before it was enqueued
+# (intake budget exceeded, CoDel standing-queue shed, or brownout): the
+# request was NOT applied; the answer carries the server's suggested
+# backoff under RETRY_AFTER_MD_KEY (service/overload.py).
+ERR_OVERLOADED = RETRYABLE_PREFIX + " intake overloaded; retry"
+
+# Answer metadata key of a server-suggested backoff in milliseconds (the
+# JAX package keeps it in parallel/leases.py; the port's leases, when
+# ported, import it from here).
+RETRY_AFTER_MD_KEY = "retry_after_ms"
+
+
+def is_retryable_error(error: str) -> bool:
+    """True when a RateLimitResp.error marks a request that was NOT
+    applied and can be safely re-dispatched (drain/overload shedding)."""
+    return bool(error) and error.startswith(RETRYABLE_PREFIX)
+
 
 def validate_request(req: RateLimitReq) -> Optional[str]:
     """Per-item validation; returns an error string or None.

@@ -105,6 +105,13 @@ of the object path carries `stage_breakdown_us`. The pump, the
 completion thread and the demoter beat a `Watchdog` once it is set on
 `watchdog`. Nothing of this reaches the device.
 
+Intake admission (JAX `engine.overload`, service/overload.py): with an
+`IntakeGovernor` set on `overload`, `check_async` and each member of
+`check_bulk` pass its `admit` before they are enqueued (a shed or an
+expired deadline answers at once, with no device work), and the pump
+feeds it each entry's queue wait and refuses members whose deadline
+passed while they waited. Left None, the engine admits everything.
+
 Thread model: callers on any thread enqueue; one pump thread assembles
 and launches; the completion thread (depth >= 2) reads the decisions
 back and resolves futures. The table lock guards the table and the
@@ -326,14 +333,18 @@ class _WaveAssembler:
 class _Slot:
     """Result slot of one bulk member (a full Future per item costs lock
     and notify overhead; the bulk's one Future resolves at the end).
-    `t_enq` is the enqueue stamp, set only under `stage_metadata`."""
+    `t_enq` is the enqueue stamp, set only under `stage_metadata`;
+    `deadline_ms` the caller's absolute deadline (epoch ms), set only
+    with an intake governor, so that the pump drops the member at pickup
+    once the caller has given up."""
 
-    __slots__ = ("value", "_done", "t_enq")
+    __slots__ = ("value", "_done", "t_enq", "deadline_ms")
 
     def __init__(self):
         self.value = None
         self._done = False
         self.t_enq = None
+        self.deadline_ms = None
 
     def set_result(self, v) -> None:
         self.value = v
@@ -525,6 +536,12 @@ class MeshEngine:
         # Liveness (runtime/watchdog.py): set a Watchdog here and the
         # pump, the completion thread and the demoter beat it.
         self.watchdog = None
+        # Intake admission (service/overload.py IntakeGovernor, duck-typed
+        # like the watchdog): set one here and check_async / check_bulk
+        # consult it before enqueueing, and the pump feeds it each entry's
+        # queue wait and refuses expired deadlines at pickup. None admits
+        # everything: the engine without the governor, answer for answer.
+        self.overload = None
         self._ticket_seq = 0  # pump thread only
         # the pump's seconds in _dispatch so far (pump thread writes; the
         # completion stage reads it for the overlap ratio)
@@ -600,6 +617,14 @@ class MeshEngine:
         if err is not None:
             fut.set_result(RateLimitResp(error=err))
             return fut
+        ov = self.overload
+        if ov is not None:
+            shed, dl = ov.admit(req, self._queue.qsize())
+            if shed is not None:
+                fut.set_result(shed)
+                return fut
+            if dl is not None:
+                fut.deadline_ms = dl
         if req.created_at is None:
             req.created_at = self.now_fn()
         t_enq = time.perf_counter()
@@ -620,6 +645,9 @@ class MeshEngine:
         slots: List[_Slot] = []
         work = []
         now = None
+        ov = self.overload
+        # one depth read per bulk: its members join the queue as one entry
+        depth = self._queue.qsize() if ov is not None else 0
         for req in reqs:
             slot = _Slot()
             slots.append(slot)
@@ -627,6 +655,13 @@ class MeshEngine:
             if err is not None:
                 slot.set_result(RateLimitResp(error=err))
                 continue
+            if ov is not None:
+                shed, dl = ov.admit(req, depth)
+                if shed is not None:
+                    slot.set_result(shed)
+                    continue
+                if dl is not None:
+                    slot.deadline_ms = dl
             if req.created_at is None:
                 if now is None:
                     now = self.now_fn()
@@ -935,6 +970,13 @@ class MeshEngine:
         with self._census_lock:
             return self._census_cache
 
+    def cached_admission(self) -> Optional[dict]:
+        """The admission snapshot only if one is cached: never scans (the
+        SLO sampler reads it on its own clock and must do no device
+        work)."""
+        with self._admission_lock:
+            return self._admission_cache
+
     def occupancy_stats(self) -> dict:
         """live, slots, occupancy and full_group_ratio of the cached
         census."""
@@ -1232,18 +1274,46 @@ class MeshEngine:
     def _extend(self, batch: list, entry, wait_hist=None) -> bool:
         """Add a queue entry (single request or bulk); True if it asks for
         an immediate flush (NO_BATCHING). The pump passes the queue-wait
-        histogram: an entry's wait from enqueue to pickup lands there."""
+        histogram: an entry's wait from enqueue to pickup lands there and,
+        with an intake governor set, feeds its controller, and members
+        whose caller deadline has passed are refused here, before any
+        device work (the shutdown drain, which passes none, serves what
+        it finds, as the JAX engine's does)."""
         nb = int(Behavior.NO_BATCHING)
+        ov = self.overload if wait_hist is not None else None
         if type(entry) is _Bulk:
             if wait_hist is not None:
-                wait_hist.observe(time.perf_counter() - entry.t_enq)
+                w = time.perf_counter() - entry.t_enq
+                wait_hist.observe(w)
+                if ov is not None:
+                    ov.observe_wait(w)
+                    live = []
+                    for req, slot in entry.work:
+                        dl = slot.deadline_ms
+                        if dl is not None and ov.deadline_expired(dl):
+                            slot.set_result(ov.refuse_expired(req))
+                        else:
+                            live.append((req, slot))
+                    entry.work = live
             batch.extend(entry.work)
             with self._bulks_lock:
                 self._bulks.append(entry)
+            if not entry.work:
+                # every member expired at pickup: no flush will sweep the
+                # bulk, so it resolves now
+                self._sweep_bulks()
+                return False
             return any(r.behavior & nb for r, _ in entry.work)
         req, fut, t_enq = entry
         if wait_hist is not None:
-            wait_hist.observe(time.perf_counter() - t_enq)
+            w = time.perf_counter() - t_enq
+            wait_hist.observe(w)
+            if ov is not None:
+                ov.observe_wait(w)
+                dl = getattr(fut, "deadline_ms", None)
+                if dl is not None and ov.deadline_expired(dl):
+                    fut.set_result(ov.refuse_expired(req))
+                    return False
         batch.append((req, fut))
         return bool(req.behavior & nb)
 

@@ -19,6 +19,17 @@ root wires the engine's telemetry into the same Metrics
 (`metrics.wire_engine_telemetry`), as the JAX daemon does; `render()`
 is the `/metrics` body.
 
+Overload and SLOs (JAX `daemon.py` arms them; the port has no daemon
+yet, so the caller does): a `Watchdog` on `engine.watchdog` (handed to
+the observatory and the ladder too), an `SloObservatory`
+(service/slo.py) on `slo`, and an
+`OverloadManager` (service/overload.py) on `overload`, whose
+`IntakeGovernor` is `engine.overload`. Their scrape bridges publish
+the burn rates, stall flags, the ladder's level, and
+`slo_debug_info()` / `overload_debug_info()` are the JAX package's
+/debug/slo and /debug/overload payloads. A shed answer comes back from
+the engine with its error and decision path `shed`.
+
 `serve_get_rate_limits_bytes` is the grpc-free serving core of
 V1/GetRateLimits over wire bytes (the JAX package's
 `service/grpc_service.py`): the columnar edge first
@@ -79,6 +90,16 @@ class V1Service:
         # engine's measured over-admission ratio.
         self.recorder = DecisionRecorder(m, ring_size=admission_ring)
         m.add_sync(self._admission_sync)
+        # The SLO observatory (service/slo.py), set by the composition
+        # root; its scrape bridge is registered now and does nothing
+        # until it is.
+        self.slo = None  # SloObservatory
+        m.add_sync(self._slo_sync)
+        # The overload control plane (service/overload.py OverloadManager,
+        # whose governor the composition root sets on engine.overload).
+        # None leaves intake as it is; its bridge does nothing until set.
+        self.overload = None  # OverloadManager
+        m.add_sync(self._overload_sync)
 
     # ---- V1.GetRateLimits (reference gubernator.go:183-309) ----------------
 
@@ -174,6 +195,44 @@ class V1Service:
             info["memory"] = self.engine.device_memory()
         info["compile"] = {"compiles": 0, "compile_seconds": 0.0, "cache_hits": 0}
         return info
+
+    def slo_debug_info(self) -> dict:
+        """The /debug/slo payload: each SLO's burn rates over its
+        windows, alert state and remaining budget, the sampled SLIs'
+        ring summaries and the watchdog's table. Ring arithmetic over
+        values already sampled: no device work."""
+        if self.slo is None:
+            return {"enabled": False}
+        return {"enabled": True, **self.slo.debug_info()}
+
+    def overload_debug_info(self) -> dict:
+        """The /debug/overload payload: the brownout ladder's level and
+        signals and the intake governor's state (sheds by reason, tenant
+        weights, heavy hitters). Host-side copies only."""
+        if self.overload is None:
+            return {"enabled": False}
+        return self.overload.debug_info()
+
+    def _overload_sync(self, _metrics=None) -> None:
+        """Scrape-time bridge of gubernator_overload_level; nothing until
+        the overload manager is set."""
+        if self.overload is None:
+            return
+        try:
+            self.overload.metrics_sync(self.metrics)
+        except Exception:  # a failed ladder read must not poison /metrics
+            return
+
+    def _slo_sync(self, _metrics=None) -> None:
+        """Scrape-time bridge of the SLO families (burn rate, budget
+        remaining, alert state) and gubernator_thread_stalled; nothing
+        until the observatory is set."""
+        if self.slo is None:
+            return
+        try:
+            self.slo.metrics_sync(self.metrics)
+        except Exception:  # a failed evaluation must not poison /metrics
+            return
 
     def _admission_sync(self, _metrics=None) -> None:
         """Scrape-time bridge: this node's measured over-admission ratio
