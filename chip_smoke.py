@@ -85,7 +85,8 @@ Phases, for each size:
    per launch (the B sweep's fresh waves, and on the scan's own steps)
    beside the scan kernel's per step.
 5. main_path: `V1Service.get_rate_limits` over a CUDA `DeviceEngine` in
-   each configuration, 8 calls of 1,000 Zipf(1.1) items, against one CPU
+   each configuration, 8 calls of 1,000 Zipf(1.1) items (2 at 10M, whose
+   phases all serve those 2), against one CPU
    engine (flat, fused: the plain version) on the same calls and frozen
    clock: every response and the final snapshot equal, kernel launches
    of that configuration equal to waves and > 0, and (paged) pages
@@ -125,14 +126,14 @@ Phases, for each size:
    CPU reference, no columnar flush; its decisions/s is the edge's
    served rate for this traffic.
 10. pipeline: phase 5's object path at pipeline_depth 1 and 2, in turns
-   1, 2, 2, 1 (1, 2 on the paged engines at 10M), on every engine of
-   phase 9 (same calls, frozen clock):
+   1, 2, 2, 1 (1 on the paged engines at 10M, whose depth-2 run is the
+   main path's), on every engine of phase 9 (same calls, frozen clock):
    responses and snapshot equal to the CPU engine's at both depths,
    launches = waves; per run the most flushes in flight (from the end
    of a flush's dispatch to the end of its completion, as the JAX
    engine counts them), the host spans of the two stages (`_dispatch`,
    `_complete`), decisions/s and, paged, the pager's spans. Then a
-   fifth, held run at depth 2: each flush's device work held about 20
+   last, held run at depth 2: each flush's device work held about 20
    ms longer on the engine's stream, so the device is the bottleneck;
    answers equal, and on a flat table two flushes in flight (a paged
    table's demote waits on the stream inside dispatch: reported only).
@@ -149,7 +150,10 @@ Phases, for each size:
    scan's device time (CUDA events, L2 flushed, the stream held busy
    while the host enqueues, median of 10), the host time of a whole
    snapshot with its read-back, the device memory one scan adds at its
-   peak, and the byte bound (the scanned table read once at 3.35 TB/s).
+   peak, and the byte bound (the scanned table read once at 3.35 TB/s);
+   the 10M mesh engines' scans are checked but not timed again (the
+   DeviceEngines' lines time the same programs over a table of the same
+   size).
 12. wavescan_oracles, after phase 1 for each wave configuration (rows
    1-3b): 4 waves of the wave kernel, each wave's five WaveScan sums
    against the admission and census oracles over the rows it wrote
@@ -171,7 +175,7 @@ Phases, for each size:
    equal a flat engine's on the same calls and clock.
 Phase 9's run at the default max_waves is made at the engines' default
 demoter setting (every 2 s on a paged table, as the JAX package runs
-it) and, for each paged engine, once more with the demoter off.
+it).
 
 Then the bench (`gubernator_tpu_torch/bench.py`, the port of the repo's
 `bench.py` device modes), each run with the launch counts set to 0 just
@@ -213,10 +217,10 @@ of 2^20 slots at 4 ways, one per shard):
    replica 0 (device ms, device operations, byte bound).
 17. global_main_path: `IciEngine` on 8 shards of the card (the 1M
    sharded table restored from the main path's image, and the replica
-   tier) per layout, on the main path's calls: (a) every item GLOBAL
+   tier) per layout, on the main path's first 2 calls: (a) every item GLOBAL
    (`V1Service(force_global=True)`), (b) half of them, so one flush
    feeds both tiers; each through the object path and over wire bytes
-   at the default max_waves, sync_now() after every 4th call; against
+   at the default max_waves, sync_now() after every 2nd call; against
    a CPU `IciEngine` of the same geometry on the same calls, clock and
    ticks: answers, sharded snapshot and replica stack equal, the
    replica kernel launched once per replica wave and the sharded one
@@ -238,8 +242,8 @@ CUPTI has been seen to lose scan records after such runs):
    keys, drawn as the image's rows, 10% with invalid_at marks, half in
    the past and half inside the calls' span) and, per configuration, a
    fresh DeviceEngine (rows 1-3b) and an IciEngine of 8 shards (row 5)
-   on the card attached to it: the main path's 8 calls at max_waves
-   1,000, the first 4 through V1Service, the other 4 as wire bytes
+   on the card attached to it: the main path's first 2 calls at max_waves
+   1,000, the first through V1Service, the other as wire bytes
    through the columnar edge; against the port's CPU engine of the same
    kind and paging (fused) on the same calls, clock and store (a demote
    drops a page left with no live row, so only a table paged alike
@@ -267,10 +271,33 @@ bound. The kernels line gives
 rows 1-3b and 5 their launches on the store path
 (`store_path_launches`).
 
+Then 22. layouts: the JAX package's wide and packed layouts, torch
+ops on DeviceEngine (no hand kernel: they are XLA programs in the JAX
+package), at each size (1M flat; 10M paged, the pages moving on demand,
+no background demoter), on the first 250 items of the main path's
+calls and its clock: the first call as objects, the next as wire bytes
+through the columnar edge (max_waves 1,000), then a restart: the live
+keys' snapshots saved to a MemoryLoader (`save_engine`) and loaded into
+a fresh engine (`load_engine`), which answers the first call again.
+Each layout's card
+engine against a fused DeviceEngine on the card fed the same (every
+answer and response byte equal; the fused engine launches its kernel
+once a wave) and a CPU engine of the same layout and paging (answers,
+the wide table with its key strings, the census snapshot, its device
+tier scanned on the CPU by the numpy oracle, and the MemoryLoader's
+snapshots equal); no hand kernel launched; 83 and 72 B a slot;
+decisions/s of each path. Then each layout's ops at B = 1,024 on that
+card table (the decide wave, a scan of 4 waves, the store path's
+inject, probe and gather, the census): device ms (events, L2 flushed,
+the stream held while the host enqueues, median of 10), device
+operations per call (torch.profiler, in store_ops' fresh process:
+`--store-op-counts`, or `--layout-op-counts` alone) and the byte
+bound. `--only-layouts` runs the build and this phase alone.
+
 Then the observability core (metrics.py, the engine's telemetry, the
 watchdog, device memory), with no profiler, after every exact count:
 
-22. metrics, per size: the main path's calls as objects, then as bytes
+23. metrics, per size: the main path's calls as objects, then as bytes
    at the default max_waves (32), on each engine of the size
    (DeviceEngine and IciEngine of 8 shards, fused and narrow), each
    with a `Metrics` wired (`wire_engine_telemetry`, `V1Service(...,
@@ -289,12 +316,12 @@ watchdog, device memory), with no profiler, after every exact count:
    wave. Per engine decisions/s (objects, bytes), the resolve stage's
    host ms per flush (mean, p50), the stage trace, the render's
    seconds and the garbage collections during the calls.
-23. telemetry_ab, at 1M: the hot-key sketch (the telemetry's per-item
+24. telemetry_ab, at 1M: the hot-key sketch (the telemetry's per-item
    part) on and off (`hotkeys_k` 128, 0, 0, 128) on a fresh
    DeviceEngine (fused) per turn, the main path's calls as objects:
    answers equal to the CPU engine's; decisions/s, the resolve stage
    and the garbage collections per turn.
-24. latency, at 1M: the first p99 GetRateLimits. 2,000 calls of 10
+25. latency, at 1M: the first p99 GetRateLimits. 1,000 calls of 10
    Zipf(1.1) items (the main path's mix) from 16 concurrent asyncio
    callers, as objects and as bytes, each on a fresh DeviceEngine and
    IciEngine (fused, max_waves 32, the default depth) with a Metrics:
@@ -307,7 +334,7 @@ Then the overload control plane and the SLO observatory
 (service/overload.py, service/slo.py), last, with no profiler in this
 process:
 
-25. overload, at 1M (fused): (1) the plane armed as the JAX daemon arms
+26. overload, at 1M (fused): (1) the plane armed as the JAX daemon arms
    it (a Watchdog, an SloObservatory sampling every 0.5 s, an
    IntakeGovernor of limit 8,192 and target 20 ms on the engine, the
    brownout ladder every 0.25 s), the main path's calls as objects on a
@@ -385,7 +412,7 @@ from gubernator_tpu_torch.api.types import (  # noqa: E402
 )
 from gubernator_tpu_torch.ops import _build, cuda_decide, fused, narrow  # noqa: E402
 from gubernator_tpu_torch.ops.admission import admission_oracle  # noqa: E402
-from gubernator_tpu_torch.ops.census import census_oracle  # noqa: E402
+from gubernator_tpu_torch.ops.census import CensusOutput, census_oracle  # noqa: E402
 from gubernator_tpu_torch.ops.inject import INJECT_DTYPES, InjectBatch  # noqa: E402
 from gubernator_tpu_torch.ops.kernels import (  # noqa: E402
     BYTES_PER_SLOT,
@@ -440,11 +467,15 @@ class Size(NamedTuple):
     page_groups: int  # 0: flat table
     page_budget: int
     configs: Tuple[Tuple[str, bool], ...]  # (layout, paged)
+    calls: int = 8  # the main path's calls of ITEMS items
 
 
+# 10M serves 2 calls (the main path and every phase on its calls): a
+# paged engine's run costs seconds a call, and the script has a time
+# limit
 SIZES = (
     Size("1M", 1 << 18, 1_000_000, 0, 0, (("fused", False), ("narrow", False))),
-    Size("10M", 1 << 22, 10_000_000, 4096, 768, (("fused", True), ("narrow", True))),
+    Size("10M", 1 << 22, 10_000_000, 4096, 768, (("fused", True), ("narrow", True)), calls=2),
 )
 WAYS = 8
 B = 1024
@@ -1469,13 +1500,7 @@ def scan_op_names(seed: int) -> dict:
 
 def scan_op_names_child(seed: int) -> dict:
     """`scan_op_names` in a fresh process of this script."""
-    child = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--scan-op-counts", "--seed", str(seed)],
-        capture_output=True, text=True, timeout=600,
-    )
-    if child.returncode:
-        raise AssertionError(f"--scan-op-counts exited {child.returncode}: {child.stderr[-4000:]}")
-    return json.loads(child.stdout.strip().splitlines()[-1])
+    return _op_counts_child("--scan-op-counts", "--seed", str(seed))
 
 
 def phase_scan_times(rng, size, layout, page_map, tables, card, op_names):
@@ -1628,14 +1653,14 @@ class _Zipf:
         return np.searchsorted(self.cdf, rng.random(n), side="right") + 1
 
 
-def smoke_calls(rng, n_keys: int):
-    """CALLS calls of ITEMS items: Zipf(1.1) keys over n_keys, 70% token /
+def smoke_calls(rng, n_keys: int, n_calls: int = CALLS):
+    """n_calls calls of ITEMS items: Zipf(1.1) keys over n_keys, 70% token /
     30% leaky, hits 1-5, limits 10-1000, durations 1-60 s, 5%
     RESET_REMAINING, 5% DRAIN_OVER_LIMIT, a few DURATION_IS_GREGORIAN
     items; the Zipf head repeats keys inside a call, so flushes take
     several waves."""
     zipf = _Zipf(n_keys)
-    return [_smoke_items(rng, zipf.draw(rng, ITEMS)) for _ in range(CALLS)]
+    return [_smoke_items(rng, zipf.draw(rng, ITEMS)) for _ in range(n_calls)]
 
 
 def _smoke_items(rng, ks):
@@ -1706,7 +1731,7 @@ def phase_main_path(rng, image: SlotTable, size: Size, card: str):
     snapshot) for the mesh main path."""
     snap = {f: getattr(image, f) for f in SlotTable._fields}
     snap["key_strings"] = {}
-    calls = smoke_calls(rng, size.live_keys)
+    calls = smoke_calls(rng, size.live_keys, size.calls)
     base = dict(num_groups=size.num_groups, ways=WAYS, batch_size=B)
     results = {}
     with _clock.freeze(NOW) as clk:
@@ -1816,7 +1841,7 @@ def phase_mesh_main_path(size: Size, reference, card: str):
                 st = eng.stats()
                 msnap = eng.snapshot()
                 shard_pages = eng._pager.pages_snapshot()["shards"] if paged else None
-                phase_census(eng, size, name, True, card)
+                phase_census(eng, size, name, True, card, timed=not paged)
             finally:
                 eng.close()
             mismatches = sum(a != b for gc, wc in zip(got, want) for a, b in zip(gc, wc))
@@ -2052,12 +2077,9 @@ def phase_edge_main_path(size: Size, reference):
             raise AssertionError(f"{size.name}: a call fits the default max_waves; the "
                                  "default-setting edge run expects none to")
         want_obj = [wire.encode_responses([RateLimitResp(*t) for t in call]) for call in _want]
-        # paged: at the JAX default (the background demoter every 2 s),
-        # then with the demoter off, in the same run
-        runs = [(c, {}) for c in _edge_configs(size)]
-        runs += [(c, {"page_demote_interval_s": 0.0}) for c in _edge_configs(size) if c[2]]
-        for (name, layout, paged, mesh), extra in runs:
-            eng = _edge_engine(size, layout, paged, mesh, **extra)
+        # paged: at the JAX default (the background demoter every 2 s)
+        for name, layout, paged, mesh in _edge_configs(size):
+            eng = _edge_engine(size, layout, paged, mesh)
             interval = eng.cfg.page_demote_interval_s if paged else None
             try:
                 eng.restore(snap)
@@ -2104,10 +2126,11 @@ def phase_edge_main_path(size: Size, reference):
 # not the host is the bottleneck.
 PIPE_HOLD_CYCLES = 40_000_000
 # Pipeline depths per engine, in turns; the last turn is the held run.
-# The paged (10M) engines take one turn a depth: each of their runs costs
-# about 6.5 s on the card, and the whole script has a time limit.
+# The paged (10M) engines take depth 1 and the held run at depth 2 (their
+# unheld depth-2 run is the main path's): each of their runs costs about
+# 6.5 s on the card, and the whole script has a time limit.
 PIPE_TURNS = (1, 2, 2, 1, 2)
-PIPE_TURNS_PAGED = (1, 2, 2)
+PIPE_TURNS_PAGED = (1, 2)
 
 
 class _StageSpans:
@@ -2265,7 +2288,12 @@ def _scanned_rows(eng, fields=SlotTable._fields) -> SlotTable:
                            else np.zeros(n, SLOT_DTYPES[f]) for f in SlotTable._fields))
 
 
-def phase_census(eng, size: Size, name: str, mesh: bool, card: str):
+# the columns the census and admission oracles read
+_ORACLE_FIELDS = ("used", "algo", "status", "limit", "duration", "remaining", "stamp",
+                  "expire_at", "lru")
+
+
+def phase_census(eng, size: Size, name: str, mesh: bool, card: str, timed: bool = True):
     """`table_census(max_age_s=0)` and `admission_snapshot(max_age_s=0)`
     of a live engine after its serving run, against the port's numpy
     oracles over the same table copied to the host, field for field (the
@@ -2274,14 +2302,17 @@ def phase_census(eng, size: Size, name: str, mesh: bool, card: str):
     admission scan (CUDA events, L2 flushed, stream held busy while the
     host enqueues, median of CENSUS_REPS), the host time of a whole
     snapshot with its read-back, the device memory one scan adds at its
-    peak, and the byte bound (the scanned table read once)."""
+    peak, and the byte bound (the scanned table read once). Without
+    `timed` the check alone: the 10M mesh engines' scans are the
+    DeviceEngines' programs over a table of the same size, timed on
+    those."""
     _stop_demoter(eng)
     sync()
     cfg = eng.cfg
     now = eng.now_fn()
     census = eng.table_census(max_age_s=0)
     admission = eng.admission_snapshot(max_age_s=0)
-    rows = _scanned_rows(eng)
+    rows = _scanned_rows(eng, _ORACLE_FIELDS)
     want_c = census_oracle(rows, now, ways=cfg.ways, heatmap_width=cfg.census_heatmap_width,
                            thresholds=tuple(cfg.census_thresholds))
     want_a = admission_oracle(rows, now)
@@ -2297,8 +2328,8 @@ def phase_census(eng, size: Size, name: str, mesh: bool, card: str):
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)  # > the H100's 50 MB L2
     view = eng._census_view(eng.table)
-    times = {}
-    for scan, fn in (("census", eng._census), ("admission", eng._admission)):
+    times = {"census": None, "admission": None}
+    for scan, fn in (("census", eng._census), ("admission", eng._admission)) if timed else ():
         fn(view, now)
         sync()
         base = torch.cuda.memory_allocated()
@@ -2676,7 +2707,10 @@ TICK_REPS = 6
 # the host takes to enqueue the tick's torch ops
 TICK_HOLD_CYCLES = 100_000_000
 GLOBAL_BIT = 2
-SYNC_EVERY = 4  # global_main_path: sync_now() after every 4th call
+SYNC_EVERY = 2  # global_main_path: sync_now() after every 2nd call
+# global_main_path serves the main path's first calls: its CPU reference
+# (8 replicas of 2^20 slots, their ticks) takes seconds a call
+GLOBAL_CALLS = 2
 CADENCE_S = 3.0
 
 
@@ -3162,17 +3196,19 @@ def phase_global_main_path(size: Size, reference, card: str):
     """GLOBAL serving through the entry points: an IciEngine on 8 shards
     of the card with the 1M sharded table (restored from the main path's
     image) and a replica tier of 8 x 2^20 slots at 4 ways, per layout,
-    on the main path's 8 calls of 1,000 Zipf(1.1) items: (a) through
+    on the main path's first GLOBAL_CALLS (2) calls of 1,000 Zipf(1.1)
+    items: (a) through
     V1Service(force_global=True), every item GLOBAL, and (b) half the
     items GLOBAL, so one flush feeds both tiers; each over the object
     path and over wire bytes (`serve_get_rate_limits_bytes`, default
-    max_waves), with sync_now() after every 4th call. The reference is a
+    max_waves), with sync_now() after every 2nd call. The reference is a
     CPU IciEngine of the same geometry on the same calls, clock and
     ticks: answers, the sharded snapshot (key strings included) and the
     replica stack (wide), pending and tick equal. Launches counted from
     0 for each run: the replica kernel once per replica wave, the
     sharded kernel once per table wave, nothing else."""
     snap, calls, _want, _csnap = reference
+    calls = calls[:GLOBAL_CALLS]
     traffic = {"a_force_global": (calls, True),
                "b_half_global": (_global_items(calls, np.random.default_rng(9)), False)}
     launches_by_layout = {"fused": 0, "narrow": 0}
@@ -3338,8 +3374,10 @@ def phase_global_cadence(size: Size, reference, card: str):
 # The calls' hash keys are "smoke_acct:{k}" (name "smoke", unique key
 # "acct:{k}"), k = 1 .. the size's live keys.
 STORE_PREFIX = "smoke_acct:"
-# the store phase's calls through the object path; the rest go as bytes
-STORE_OBJECT_CALLS = CALLS // 2
+# store_path serves the main path's first calls, the first half through
+# the object path and the rest as bytes: its CPU mesh reference takes
+# seconds a call
+STORE_CALLS = 2
 _SNAP_FIELDS = ("algorithm", "status", "limit", "duration", "remaining", "stamp", "expire_at",
                 "invalid_at", "burst")
 
@@ -3472,7 +3510,7 @@ def _store_engine(size: Size, layout: str, paged: bool, mesh: bool, device):
 
 
 def _store_serve(eng, store, calls, clk):
-    """The first STORE_OBJECT_CALLS calls through `V1Service.
+    """The first half of the calls through `V1Service.
     get_rate_limits` (the object path), the rest as GetRateLimitsReq
     bytes through `serve_get_rate_limits_bytes` (the columnar edge), 700
     ms apart. Returns (answers: tuples, then response bytes; per call
@@ -3480,12 +3518,13 @@ def _store_serve(eng, store, calls, clk):
     seconds; per body the columnar flushes)."""
     svc = V1Service(eng)
     out, per_call, columnar, secs = [], [], [], 0.0
-    bodies = [encode_request(items) for items in calls[STORE_OBJECT_CALLS:]]
+    half = len(calls) // 2
+    bodies = [encode_request(items) for items in calls[half:]]
 
     def counts():
         return store.get_calls, store.change_calls, eng.stats()["store_injected"]
 
-    for kind, work in (("object", calls[:STORE_OBJECT_CALLS]), ("bytes", bodies)):
+    for kind, work in (("object", calls[:half]), ("bytes", bodies)):
         for w in work:
             c0, f0 = counts(), eng.stats()["columnar_flushes"]
             t0 = time.perf_counter()
@@ -3507,10 +3546,10 @@ def _store_serve(eng, store, calls, clk):
 def phase_store_path(rng, size: Size, calls, card: str):
     """The restart case through the store path: a ColumnStore holding a
     snapshot of every key the calls can name (the size's live keys), a
-    fresh engine attached to it, the main path's 8 calls at max_waves
-    1,000 (a call is one flush), the first 4 through V1Service, the
-    other 4 as wire bytes through the columnar edge (a body's Gregorian
-    items spliced through the object path).
+    fresh engine attached to it, the main path's first STORE_CALLS (2)
+    calls at max_waves 1,000 (a call is one flush), the first half
+    through V1Service, the rest as wire bytes through the columnar edge
+    (a body's Gregorian items spliced through the object path).
     Every miss reads through: the prefetch of never-seen keys outside
     the lock, else the per-wave probe and Store.get, then the inject
     before the wave's decide; every flush writes behind.
@@ -3528,7 +3567,9 @@ def phase_store_path(rng, size: Size, calls, card: str):
     through must be equal; kernel launches equal to the table waves,
     two read-backs per wave, every body that is not all-Gregorian one
     columnar flush. Returns {kernel name: launches}."""
-    must_columnar = sum(1 for items in calls[STORE_OBJECT_CALLS:]
+    calls = calls[:STORE_CALLS]
+    half = len(calls) // 2
+    must_columnar = sum(1 for items in calls[half:]
                         if any(not kw["behavior"] & 4 for kw in items))
     t0 = time.perf_counter()
     cols = store_columns(rng, size.live_keys)
@@ -3580,8 +3621,8 @@ def phase_store_path(rng, size: Size, calls, card: str):
                 "write_behind": s["_store_write_behind_core"],
             }
             res = {"phase": "store_path", "size": size.name, "kernel": name, "mesh": mesh,
-                   "paged": paged, "object_calls": STORE_OBJECT_CALLS,
-                   "wire_calls": len(calls) - STORE_OBJECT_CALLS,
+                   "paged": paged, "object_calls": half,
+                   "wire_calls": len(calls) - half,
                    "items": decisions, "max_waves": EDGE_MAX_WAVES,
                    "answer_mismatches": sum(a != b for a, b in zip(got, want)),
                    "snapshot_columns_differing": _snap_diff(ssnap, want_snap),
@@ -3653,18 +3694,25 @@ def phase_loader(rng, size: Size, calls, card: str) -> dict:
     fresh engine (timed; its inject waves counted), `save_engine`, whose
     snapshots must equal the loaded ones key for key, then the main
     path's first call, whose answers must equal a CPU engine's loaded
-    the same way (flat fused), with one launch per wave. Returns
-    {kernel name: launches}."""
+    the same way (flat fused), with one launch per wave. The CPU engine
+    is loaded with the snapshots of the groups that call touches only:
+    every snapshot of such a group, in the same order, so those groups
+    hold what a full load leaves there, and the call reads no other.
+    Returns {kernel name: launches}."""
     t0 = time.perf_counter()
     items = loader_items(rng, size)
     build_s = time.perf_counter() - t0
     loaded = {it.key: _snap_row(it) for it in items}
     base = dict(num_groups=size.num_groups, ways=WAYS, batch_size=B)
+    touched = set(key_hash128_batch([f"{kw['name']}_{kw['unique_key']}" for kw in calls[0]],
+                                    size.num_groups)[2].tolist())
+    item_groups = key_hash128_batch([it.key for it in items], size.num_groups)[2]
+    near = [it for it, g in zip(items, item_groups.tolist()) if g in touched]
     launched = {}
     with _clock.freeze(NOW):
         ceng = DeviceEngine(EngineConfig(device="cpu", **base))
         try:
-            load_engine(ceng, MemoryLoader(items))
+            load_engine(ceng, MemoryLoader(near))
             want = [(r.status, r.limit, r.remaining, r.reset_time, r.error) for r in
                     asyncio.run(V1Service(ceng).get_rate_limits(
                         [RateLimitReq(**kw) for kw in calls[0]]))]
@@ -3782,9 +3830,11 @@ def _store_op_fns(rng, size: Size, layout: str, paged: bool, mesh: bool, pm):
 
 def store_op_counts() -> dict:
     """The device operations per call of every store op of store_ops,
-    from torch.profiler: run by store_ops in a fresh process of this
-    script (`--store-op-counts`), since late in a long run CUPTI has been
-    seen to lose records. {"size/layout/mesh": {op: ops per call}}."""
+    and of the torch-op layouts' ops (`layout_op_counts`), from
+    torch.profiler: run by store_ops in a fresh process of this script
+    (`--store-op-counts`), since late in a long run CUPTI has been seen
+    to lose records. {"size/layout/mesh": {op: ops per call}, and
+    "layouts/size/layout": {op: ops per call}}."""
     rng = np.random.default_rng(0)
     out = {}
     for size, layout, paged, mesh, pm in _store_op_configs(rng):
@@ -3796,7 +3846,7 @@ def store_op_counts() -> dict:
             name: _ops_per_call(fn) for name, (fn, _nbytes) in ops.items()}
         del table, ops
         free_device()
-    return out
+    return layout_op_counts(out)
 
 
 def phase_store_ops(rng, card: str) -> dict:
@@ -3808,15 +3858,10 @@ def phase_store_ops(rng, card: str) -> dict:
     paged table on resident pages. Device ms (events, L2 flushed, the
     stream held busy while the host enqueues, median of STORE_OPS_REPS),
     device operations per call (torch.profiler, in a fresh process:
-    `store_op_counts`) and the byte bound (`_store_op_fns`). Returns
-    {(size, layout, mesh): line}."""
-    child = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--store-op-counts"],
-        capture_output=True, text=True, check=True, timeout=600,
-    )
-    counts = json.loads(child.stdout.strip().splitlines()[-1])
+    `store_op_counts`) and the byte bound (`_store_op_fns`). Returns the
+    fresh process's op counts (the layouts phase reads its own)."""
+    counts = _op_counts_child("--store-op-counts")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
-    out = {}
     for size, layout, paged, mesh, pm in _store_op_configs(rng):
         table, ops = _store_op_fns(rng, size, layout, paged, mesh, pm)
         line = {"phase": "store_ops", "size": size.name, "layout": layout,
@@ -3831,9 +3876,360 @@ def phase_store_ops(rng, card: str) -> dict:
                 "bytes_bound": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                 "bound_by": "bytes"}
         emit(line)
-        out[(size.name, layout, mesh)] = line
         del table, ops
         free_device()
+    del flush
+    return counts
+
+
+def _op_counts_child(*args: str) -> dict:
+    """The JSON line that a fresh process of this script prints when run
+    with `args` (an op count mode)."""
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), *args],
+        capture_output=True, text=True, timeout=600,
+    )
+    if child.returncode:
+        raise AssertionError(f"{args[0]} exited {child.returncode}: {child.stderr[-4000:]}")
+    return json.loads(child.stdout.strip().splitlines()[-1])
+
+
+# ---------------------------------------------------------------------------
+# the wide and packed layouts: torch ops on DeviceEngine, flat and paged
+
+# The layouts served by torch ops (XLA programs in the JAX package)
+TORCH_LAYOUTS = ("wide", "packed")
+# The main path's calls the phase serves: the first ones as objects, the
+# next ones as wire bytes; the engine restarted through a MemoryLoader
+# serves the first call again
+LAYOUT_OBJECT_CALLS = 1
+LAYOUT_BYTE_CALLS = 1
+# items of each call the phase serves (a prefix of the main path's call:
+# a wide or packed wave is hundreds of small torch ops)
+LAYOUT_ITEMS = 250
+LAYOUT_REPS = 10
+LAYOUT_SCAN_T = 4  # steps of the timed scan
+# Bytes a lane of the decide needs of the table, by layout: a way's probe
+# columns (wide: key_hi, key_lo, used, expire_at, invalid_at, lru;
+# packed: key_lo, meta, expire_at, invalid_at), the rest of the chosen
+# row (packed: with key_hi at the matched and the insert way) and the
+# row written
+TORCH_ROW_BYTES = {"wide": (41, 42, 83), "packed": (32, 48, 72)}
+BATCH_BYTES = sum(np.dtype(dt).itemsize for dt in BATCH_DTYPES.values())
+# status, limit, remaining, reset_time, slot, evicted_hi, evicted_lo, freed
+OUT_BYTES = 1 + 6 * 8 + 1
+
+
+class _Taken:
+    """An engine's snapshot, taken once, as `save_engine` reads it."""
+
+    def __init__(self, snap):
+        self._snap = snap
+
+    def snapshot(self):
+        return self._snap
+
+
+def _layout_engine(size: Size, layout: str, device):
+    """A DeviceEngine of the size at `layout` (paged: the size's frames,
+    no background demoter, so the pages move on demand alike on the card
+    and the CPU), at max_waves 1,000 so that a call's bytes fit one
+    columnar flush."""
+    pcfg = (dict(page_groups=size.page_groups, page_budget=size.page_budget,
+                 page_demote_interval_s=0.0) if size.page_groups else {})
+    return DeviceEngine(EngineConfig(device=torch.device(device).type, num_groups=size.num_groups,
+                                     ways=WAYS, batch_size=B, layout=layout,
+                                     max_waves=EDGE_MAX_WAVES, **pcfg))
+
+
+def _census_by_oracle(eng) -> None:
+    """A CPU engine's census scans its table with the numpy oracle (the
+    torch census takes about a minute at 10M on the CPU;
+    tests/test_torch_census.py holds the two equal)."""
+    cfg = eng.cfg
+    to_wide = get_kernels(cfg.layout).to_wide
+
+    def scan(view, now):
+        out = census_oracle(SlotTable(*(c.numpy() for c in to_wide(view))), now, ways=cfg.ways,
+                            heatmap_width=cfg.census_heatmap_width,
+                            thresholds=tuple(cfg.census_thresholds))
+        return CensusOutput(**{k: torch.as_tensor(np.asarray(v)) for k, v in out.items()})
+
+    eng._census = scan
+
+
+def _layout_run(size: Size, layout: str, device, snap, obj_calls, bodies, restart_call, clk,
+                saved=None):
+    """One engine's run of the phase on the frozen clock: the image
+    restored, the object calls, the bytes calls, then (without `saved`)
+    the snapshot, the census and the live keys' snapshots saved to a
+    MemoryLoader, and (with `restart_call`) a fresh engine loaded from
+    the MemoryLoader (or from the snapshots `saved`) answering it.
+    Returns what is compared, the stats, the seconds of each path and
+    the engine's resident table bytes; the engine is kept for the op
+    times on the card (the caller closes it)."""
+    eng = _layout_engine(size, layout, device)
+    if eng.device.type == "cpu":
+        _census_by_oracle(eng)
+    eng.restore(snap)
+    st0 = eng.stats()
+    sync()
+    cuda_decide.reset_launches()
+    svc = V1Service(eng)
+    obj, obj_s, _ = _serve(svc, obj_calls, clk)
+    clk.advance(700 * len(obj_calls))
+    wire_out, wire_s, columnar = _serve_bytes(svc, bodies, clk)
+    clk.advance(700 * len(bodies))
+    st = eng.stats()
+    run = {"eng": eng, "objects": obj, "bytes": wire_out}
+    if saved is None:
+        run["snapshot"] = eng.snapshot()
+        census = eng.table_census(max_age_s=0)
+        run["census"] = {k: v for k, v in census.items() if k != "churn"}
+        loader = MemoryLoader()
+        save_engine(_Taken(run["snapshot"]), loader)
+        saved = loader.items
+    fst = {"waves": 0, "kernel_launches": 0}
+    if restart_call is not None:
+        fresh = _layout_engine(size, layout, device)
+        try:
+            load_engine(fresh, MemoryLoader(saved))
+            run["restart"], restart_s, _ = _serve(V1Service(fresh), [restart_call], clk)
+            run["seconds_restart"] = restart_s
+            fst = fresh.stats()
+        finally:
+            fresh.close()
+    sync()
+    clk.advance(-700 * (len(obj_calls) + len(bodies)))
+    run.update(
+        saved=saved, launches=dict(cuda_decide.CONFIG_LAUNCHES),
+        stats={k: st[k] - st0[k] for k in ("flushes", "columnar_flushes", "waves",
+                                           "kernel_launches", "promotes", "demotes",
+                                           "binds") if k in st},
+        restart_waves=fst["waves"], restart_launches=fst["kernel_launches"],
+        columnar_calls=sum(1 for c in columnar if c == 1),
+        seconds={"objects": obj_s, "bytes": wire_s,
+                 **({"restart": run.pop("seconds_restart")} if "restart" in run else {})},
+        table_bytes=sum(t.nbytes for t in (eng.table.data if size.page_groups else eng.table)),
+    )
+    return run
+
+
+def _torch_op_fns(rng, K, table, size: Size, layout: str, pm, image) -> dict:
+    """{op: (one call, its byte bound)} of the layout's torch ops at B
+    lanes on `table` (`K`'s; paged: lanes on the pages `pm` holds
+    resident, as the pager runs them): the decide wave, a scan of
+    LAYOUT_SCAN_T waves, the store path's inject, probe and gather, and
+    the census. Bytes: each input read once, each output written once;
+    per active lane the W ways' probe columns, the rest of the chosen
+    row, the row written (a paged lane's map entry too); the census
+    reads the table once."""
+    paged = pm is not None
+
+    def groups():
+        if paged:
+            return resident_groups(rng, size, pm)
+        return rng.choice(size.num_groups, B, replace=False)
+
+    now = NOW + 60_000
+    hb = smoke_wave(rng, image, now, size.num_groups, groups())
+    db = batch_to_device(hb, DEVICE)
+    hbs = [smoke_wave(rng, image, now + t, size.num_groups, groups())
+           for t in range(LAYOUT_SCAN_T)]
+    sdb = batch_to_device(stack_batches(hbs), DEVICE)
+    nows = torch.arange(now, now + LAYOUT_SCAN_T, dtype=torch.int64, device=DEVICE)
+    items = InjectBatch.zeros(B)._replace(
+        key_hi=hb.key_hi, key_lo=hb.key_lo, group=hb.group, algo=hb.algo,
+        limit=np.full(B, 100), duration=np.full(B, 60_000), remaining=np.full(B, 7),
+        stamp=np.full(B, NOW), expire_at=np.full(B, NOW + 60_000), active=hb.active,
+    ).to_device(DEVICE)
+    rows = table.num_slots
+    slots = torch.as_tensor(rng.integers(0, rows, B), device=DEVICE)
+    census = get_census(layout, WAYS)
+    view = table.data if paged else table
+    probe_b, rest_b, row_b = TORCH_ROW_BYTES[layout]
+    map_b = 4 if paged else 0
+    act = int(hb.active.sum())
+    wave_b = B * BATCH_BYTES + act * (WAYS * probe_b + rest_b + row_b + map_b) + B * OUT_BYTES
+    scan_act = sum(int(h.active.sum()) for h in hbs)
+    scan_b = (LAYOUT_SCAN_T * B * (BATCH_BYTES + OUT_BYTES)
+              + scan_act * (WAYS * probe_b + rest_b + row_b + map_b))
+    item_b = sum(np.dtype(dt).itemsize for dt in INJECT_DTYPES.values())
+    return {
+        "decide": (lambda: K.decide(table, db, now, WAYS), wave_b),
+        "decide_scan": (lambda: K.decide_scan(table, sdb, nows, WAYS), scan_b),
+        "inject": (lambda: K.inject(table, items, now, WAYS),
+                   B * (item_b + 16) + act * (WAYS * probe_b + row_b + map_b)),
+        "probe_exists": (lambda: K.probe_exists(table, db.key_hi, db.key_lo, db.group, now, WAYS),
+                         B * (8 + 8 + 4 + 1 + map_b + WAYS * probe_b)),
+        "gather_rows": (lambda: K.gather_rows(table, slots), B * (8 + row_b + WIDE_ROW_BYTES)),
+        "census": (lambda: census(view, now), rows * BYTES_PER_SLOT[layout]),
+    }
+
+
+def _layout_op_tables(size: Size, layout: str, pm):
+    """(K, table) of the layout at the size on the card, empty (paged:
+    the frames behind `pm`), for the op counts."""
+    if pm is None:
+        K = get_kernels(layout)
+        return K, K.create(size.num_groups, WAYS, DEVICE)
+    K = get_paged_kernels(layout, size.num_groups, WAYS, size.page_groups, size.page_budget,
+                          DEVICE)
+    table = K.create()
+    table.page_map.copy_(torch.as_tensor(pm))
+    return K, table
+
+
+def layout_op_counts(out: dict) -> dict:
+    """The device operations per call of every op `_torch_op_fns` times,
+    on empty tables of each size and torch-op layout, into `out` under
+    "layouts/{size}/{layout}" (the op counts of store_ops' fresh
+    process)."""
+    rng = np.random.default_rng(1)
+    for size in SIZES:
+        pm = scrambled_page_map(rng, size) if size.page_groups else None
+        image = SlotTable(**{f: np.zeros(size.num_groups * WAYS, SLOT_DTYPES[f])
+                             for f in SlotTable._fields})
+        for layout in TORCH_LAYOUTS:
+            K, table = _layout_op_tables(size, layout, pm)
+            ops = _torch_op_fns(rng, K, table, size, layout, pm, image)
+            for fn, _nbytes in ops.values():
+                fn()
+            sync()
+            # one call each: hundreds of operations a call, the same every call
+            out[f"layouts/{size.name}/{layout}"] = {
+                name: _ops_per_call(fn, reps=1) for name, (fn, _nbytes) in ops.items()}
+            del K, table, ops
+            free_device()
+        del image
+    return out
+
+
+def _layout_checks(name, got, want, cpu) -> dict:
+    """What one torch-op engine's run must equal: the fused card engine's
+    answers (objects, bytes, the restart) and the CPU engine's of the
+    same layout and paging (answers but the restart's, wide table with
+    key strings, census, the MemoryLoader's snapshots)."""
+    diff = {
+        "answers_vs_fused": sum(a != b for p in ("objects", "bytes", "restart")
+                                for a, b in zip(got[p], want[p])),
+        "answers_vs_cpu": sum(a != b for p in ("objects", "bytes")
+                              for a, b in zip(got[p], cpu[p])),
+        "table_columns_vs_cpu": _snap_diff(got["snapshot"], cpu["snapshot"]),
+        "census_vs_cpu": sorted(k for k in got["census"]
+                                if got["census"][k] != cpu["census"].get(k)),
+        "loader_items_vs_cpu": got["saved"] != cpu["saved"],
+    }
+    if any(diff.values()):
+        raise AssertionError(f"{name}: the layout disagrees: {diff}")
+    return diff
+
+
+def phase_layouts(rng, size_refs, card: str, counts: dict) -> dict:
+    """The wide and packed layouts (torch ops) on DeviceEngine, at each
+    size (1M flat, 10M paged with page moves), on the main path's calls
+    and frozen clock: LAYOUT_OBJECT_CALLS calls as objects, the next
+    LAYOUT_BYTE_CALLS as wire bytes through the columnar edge, then a
+    restart: the live keys' snapshots saved to a MemoryLoader and loaded
+    into a fresh engine, which answers one more call. Each layout's card
+    engine against a fused DeviceEngine on the card (answers, launching
+    its kernel once a wave) and a CPU engine of the same layout and
+    paging (answers, wide table, census, the Loader's snapshots);
+    decisions/s of each path, no hand kernel launched by a torch-op
+    engine, its resident table bytes (83 or 72 B a slot). Then the
+    layout's ops on the card engine's table at B lanes (`_torch_op_fns`):
+    device ms (events, L2 flushed, the stream held while the host
+    enqueues, median of LAYOUT_REPS), device operations per call
+    (`counts`, from the op counts' fresh process) and the byte bound.
+    Returns {(size, layout): line}."""
+    out = {}
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    for size, reference in size_refs:
+        snap = reference[0]
+        calls = [items[:LAYOUT_ITEMS] for items in reference[1]]
+        n_obj, n_bytes = LAYOUT_OBJECT_CALLS, LAYOUT_BYTE_CALLS
+        obj_calls, byte_calls = calls[:n_obj], calls[n_obj:n_obj + n_bytes]
+        restart_call = calls[0]  # its keys again, on the restarted engine
+        bodies = [encode_request(items) for items in byte_calls]
+        image = SlotTable(**{f: snap[f] for f in SlotTable._fields})
+        items = {"objects": sum(map(len, obj_calls)), "bytes": sum(map(len, byte_calls)),
+                 "restart": len(restart_call)}
+        with _clock.freeze(NOW) as clk:
+            t0 = time.perf_counter()
+            fused = None
+            fused_name = cuda_decide.config_name("fused", bool(size.page_groups))
+            for layout in TORCH_LAYOUTS:
+                t1 = time.perf_counter()
+                cpu = _layout_run(size, layout, "cpu", snap, obj_calls, bodies, None, clk)
+                cpu["eng"].close()
+                cpu_s = time.perf_counter() - t1
+                if fused is None:
+                    # the cross-check: the fused kernel's engine on the card,
+                    # restarted from the same snapshots (the Loader's rows are
+                    # the same at every layout)
+                    fused = _layout_run(size, "fused", DEVICE, snap, obj_calls, bodies,
+                                        restart_call, clk, saved=cpu["saved"])
+                    fused["eng"].close()
+                    if not (fused["launches"][fused_name] == fused["stats"]["waves"]
+                            + fused["restart_waves"] > 0):
+                        raise AssertionError(f"{size.name}: the fused engine's launches "
+                                             f"{fused['launches']} do not match its waves")
+                    free_device()
+                got = _layout_run(size, layout, DEVICE, snap, obj_calls, bodies, restart_call,
+                                  clk)
+                eng = got["eng"]
+                name = f"{layout}_{'paged' if size.page_groups else 'flat'}"
+                try:
+                    diff = _layout_checks(name, got, fused, cpu)
+                    st = got["stats"]
+                    slots = (size.page_budget * size.page_groups if size.page_groups
+                             else size.num_groups) * WAYS
+                    line = {
+                        "phase": "layouts", "size": size.name, "layout": layout,
+                        "paged": bool(size.page_groups), "items": items, **diff,
+                        "decisions_per_s": {p: items[p] / got["seconds"][p] for p in items},
+                        "fused_decisions_per_s": {p: items[p] / fused["seconds"][p]
+                                                  for p in items},
+                        "seconds": got["seconds"], "stats": st,
+                        "columnar_calls": got["columnar_calls"],
+                        "loader_items": len(got["saved"]),
+                        "hand_kernel_launches": sum(got["launches"].values()),
+                        "fused_launches": fused["launches"][fused_name],
+                        "table_bytes": got["table_bytes"], "slots": slots,
+                        "bytes_per_slot": got["table_bytes"] / slots,
+                        "census_live": got["census"]["live"], "cpu_run_s": cpu_s,
+                        "card": card,
+                    }
+                    if line["hand_kernel_launches"] or st["kernel_launches"] \
+                            or got["restart_launches"]:
+                        raise AssertionError(f"{name}: a hand kernel was launched")
+                    if line["columnar_calls"] != n_bytes or st["columnar_flushes"] != n_bytes:
+                        raise AssertionError(f"{name}: the bytes did not go columnar")
+                    if line["bytes_per_slot"] != BYTES_PER_SLOT[layout]:
+                        raise AssertionError(f"{name}: {line['bytes_per_slot']} B a slot")
+                    if size.page_groups and not (st["promotes"] > 0 and st["demotes"] > 0):
+                        raise AssertionError(f"{name}: no page moved")
+                    del got, cpu
+                    pm = eng._pager.page_map if size.page_groups else None
+                    ops = _torch_op_fns(rng, eng.K, eng.table, size, layout, pm, image)
+                    key = f"layouts/{size.name}/{layout}"
+                    for op, (fn, nbytes) in ops.items():
+                        fn()
+                        sync()
+                        line[op] = {
+                            "device_ms_median": _median_ms(fn, LAYOUT_REPS, flush,
+                                                          hold_cycles=SCAN_HOLD_CYCLES),
+                            "device_ops_per_call": counts[key][op], "bytes_bound": nbytes,
+                            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+                    del ops
+                finally:
+                    eng.close()
+                line["phase_s"] = time.perf_counter() - t1
+                emit(line)
+                out[(size.name, layout)] = line
+                free_device()
+            emit({"phase": "layouts_size", "size": size.name,
+                  "seconds": time.perf_counter() - t0, "card": card})
     del flush
     return out
 
@@ -4145,7 +4541,7 @@ def phase_telemetry_ab(size: Size, reference, card: str):
     return out
 
 
-LAT_CALLS = 2000
+LAT_CALLS = 1000
 LAT_ITEMS = 10
 LAT_CALLERS = 16
 
@@ -5126,9 +5522,19 @@ def main() -> int:
                     help="print the device operations of every scan configuration's "
                          "scans (scan_times checks them; main runs this in a fresh "
                          "process) and exit")
+    ap.add_argument("--layout-op-counts", action="store_true",
+                    help="print the device operations per call of the wide and packed "
+                         "layouts' ops (as --store-op-counts does with the store ops) "
+                         "and exit")
+    ap.add_argument("--only-layouts", action="store_true",
+                    help="build, then run the layouts phase alone on a fresh image and "
+                         "calls of each size (a short check; prints no kernels line)")
     args = ap.parse_args()
     if args.store_op_counts:
         print(json.dumps(store_op_counts()))
+        return 0
+    if args.layout_op_counts:
+        print(json.dumps(layout_op_counts({})))
         return 0
     if args.scan_op_counts:
         print(json.dumps(scan_op_names(args.seed)))
@@ -5148,6 +5554,16 @@ def main() -> int:
           "count": torch.cuda.device_count()})
 
     phase_build()
+    if args.only_layouts:
+        refs = []
+        for size in SIZES:
+            image = live_image(rng, size)
+            snap = {f: getattr(image, f) for f in SlotTable._fields}
+            snap["key_strings"] = {}
+            refs.append((size, (snap, smoke_calls(rng, size.live_keys, size.calls))))
+        phase_layouts(rng, refs, smi, _op_counts_child("--layout-op-counts"))
+        emit({"phase": "summary", "wall_s": time.perf_counter() - t0, "nvidia_smi": smi})
+        return 0
     scan_ops = scan_op_names_child(args.seed)
     entries, scans = [], []
     mesh_errs, mesh_times, mesh_launches, size_refs = {}, {}, {}, []
@@ -5180,7 +5596,11 @@ def main() -> int:
             store_launches[k] = store_launches.get(k, 0) + v
         if not size.page_groups:
             phase_loader(rng, size, reference[1], smi)
-    phase_store_ops(rng, smi)
+    op_counts = phase_store_ops(rng, smi)
+    # the wide and packed layouts: hundreds of small torch ops, so after
+    # every exact profiler count too (their op counts come from the store
+    # ops' fresh process)
+    phase_layouts(rng, size_refs, smi, op_counts)
     # the observability core over the serving paths, and the p99 latency:
     # no profiler, after every exact count
     for size, reference in size_refs:

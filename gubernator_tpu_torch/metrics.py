@@ -1289,13 +1289,15 @@ class Metrics:
         )
         # Decide-kernel backend (docs/monitoring.md "Device resources"):
         # which decide program serves: the hand-written CUDA kernels on
-        # a card, the plain PyTorch version on the CPU; and the team
-        # kernel's lanes per block.
+        # a card, torch ops otherwise (the plain version on the CPU, the
+        # wide and packed layouts anywhere); and the team kernel's lanes
+        # per block.
         self.kernel_backend_info = Gauge(
             "gubernator_kernel_backend",
             "Active decide-kernel backend: 1 for the serving backend "
             "label (cuda = the hand-written Hopper decide kernels, "
-            "torch = the plain PyTorch version on the CPU), 0 otherwise.",
+            "torch = torch ops: the plain version on the CPU, the wide "
+            "and packed layouts on either device), 0 otherwise.",
             ["backend"],
             registry=r,
         )
@@ -1762,7 +1764,7 @@ OPENMETRICS_CONTENT_TYPE = (
 )
 
 # The port's decide backends, the label values of gubernator_kernel_backend:
-# the hand-written kernels on a card, the plain version on the CPU.
+# the hand-written kernels on a card, torch ops otherwise.
 KERNEL_BACKENDS = ("cuda", "torch")
 
 

@@ -119,8 +119,8 @@ def admission_oracle(wide, now: int, *, n_buckets: int = ADMISSION_BUCKETS) -> d
     excess_mask = active & (excess > 0)
 
     bounds = np.int64(2) ** np.arange(n_buckets - 1, dtype=np.int64)
-    idx = np.searchsorted(bounds, np.where(excess_mask, excess, 0), "right")
-    excess_hist = np.bincount(idx[excess_mask], minlength=n_buckets).astype(np.int64)
+    idx = np.searchsorted(bounds, excess[excess_mask], "right")
+    excess_hist = np.bincount(idx, minlength=n_buckets).astype(np.int64)
 
     return {
         "keys": int(active.sum()),

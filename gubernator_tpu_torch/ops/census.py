@@ -184,25 +184,27 @@ def census_oracle(
 ) -> dict:
     """Reference census over a WIDE table of host numpy arrays; mirrors
     `_census_wide` decision for decision (same clamps, same searchsorted
-    boundaries, same heatmap padding)."""
+    boundaries, same heatmap padding). Only used slots count, so the
+    per-slot work runs over them alone."""
     used = np.asarray(wide.used, dtype=bool)
-    stamp = np.asarray(wide.stamp, dtype=np.int64)
-    lru = np.asarray(wide.lru, dtype=np.int64)
-    expire_at = np.asarray(wide.expire_at, dtype=np.int64)
-    duration = np.asarray(wide.duration, dtype=np.int64)
     n = used.shape[0]
     groups = n // ways
+    live = np.flatnonzero(used)
+    stamp = np.asarray(wide.stamp, dtype=np.int64)[live]
+    lru = np.asarray(wide.lru, dtype=np.int64)[live]
+    expire_at = np.asarray(wide.expire_at, dtype=np.int64)[live]
+    duration = np.asarray(wide.duration, dtype=np.int64)[live]
     bounds = np.int64(2) ** np.arange(n_buckets - 1, dtype=np.int64)
 
     def bins(deltas):
-        v = np.where(used, np.maximum(deltas, 0), 0).astype(np.int64)
-        idx = np.searchsorted(bounds, v, side="right")
-        counts = np.bincount(idx[used], minlength=n_buckets).astype(np.int64)
+        v = np.maximum(deltas, 0)
+        counts = np.bincount(np.searchsorted(bounds, v, side="right"),
+                             minlength=n_buckets).astype(np.int64)
         return counts, np.int64(v.sum())
 
     age_hist, age_sum = bins(np.int64(now) - stamp)
-    idle = np.int64(now) - lru
-    idle_hist, idle_sum = bins(idle)
+    idle_c = np.maximum(np.int64(now) - lru, 0)
+    idle_hist, idle_sum = bins(idle_c)
 
     g_used = used.reshape(groups, ways).sum(axis=1).astype(np.int64)
     full = g_used == ways
@@ -217,18 +219,15 @@ def census_oracle(
         padded[:groups] = per_group
         return padded.reshape(heatmap_width, per_region).sum(axis=1).astype(np.int64)
 
-    idle_c = np.maximum(idle, 0)
-    cold = np.array(
-        [int((used & (idle_c > np.int64(k) * duration)).sum()) for k in thresholds],
-        dtype=np.int64,
-    )
-    cold0 = used & (idle_c > np.int64(thresholds[0]) * duration)
-    g_cold = cold0.reshape(groups, ways).sum(axis=1).astype(np.int64)
+    cold = np.array([int((idle_c > np.int64(k) * duration).sum()) for k in thresholds],
+                    dtype=np.int64)
+    cold0 = idle_c > np.int64(thresholds[0]) * duration
+    g_cold = np.bincount(live[cold0] // ways, minlength=groups).astype(np.int64)
 
     return {
-        "live": int(used.sum()),
+        "live": int(live.size),
         "full_groups": int(full.sum()),
-        "waste": int((used & (expire_at <= np.int64(now))).sum()),
+        "waste": int((expire_at <= np.int64(now)).sum()),
         "age_hist": age_hist,
         "age_sum": int(age_sum),
         "idle_hist": idle_hist,

@@ -29,8 +29,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from gubernator_tpu_torch.api.types import Algorithm, Behavior
-from gubernator_tpu_torch.ops.decide import _leaky_paths, _token_paths
+from gubernator_tpu_torch.api.types import Algorithm
+from gubernator_tpu_torch.ops.decide import both_paths, expired_ways, select_ways, stack_outputs
 from gubernator_tpu_torch.ops.layout import (
     DEFAULT_WAYS,
     DecideOutput,
@@ -162,32 +162,17 @@ def gather_rows_fused(table: FusedTable, slots: torch.Tensor) -> SlotTable:
 
 
 def probe_ways(w_khi, w_klo, w_meta, w_exp, w_inv, batch, now):
-    """Way-selection policy over per-way (B, W) columns: returns
-    (exists, matched_way, insert_way, cat). Live match first; otherwise
-    insert by matched-expired > empty > expired > least-recently-used,
-    ties to the lowest way (argmax/argmin return the first index)."""
+    """Way selection over per-way (B, W) columns of a row layout, the
+    used bit and lru read from the meta word: (exists, matched_way,
+    insert_way, cat) of `decide.select_ways`."""
     w_used = (w_meta & META_USED) != 0
-    w_lru = w_meta >> META_LRU_SHIFT
-    w_expired = w_used & ((w_exp < now) | ((w_inv != 0) & (w_inv < now)))
     w_match = (
         w_used
         & (w_khi == batch.key_hi[:, None])
         & (w_klo == batch.key_lo[:, None])
     )
-    live_match = w_match & ~w_expired
-    exists = live_match.any(dim=1)
-    matched_way = torch.argmax(live_match.to(torch.uint8), dim=1)
-
-    cat = torch.where(
-        w_match & w_expired,
-        0,
-        torch.where(~w_used, 1, torch.where(w_expired, 2, 3)),
-    ).to(I64)
-    way_off = torch.arange(w_meta.shape[1], dtype=I64, device=w_meta.device)
-    tie = torch.where(cat == 3, torch.clamp(w_lru, 0, (1 << 44) - 1), way_off[None, :])
-    score = (cat << 44) + tie
-    insert_way = torch.argmin(score, dim=1)
-    return exists, matched_way, insert_way, cat
+    return select_ways(w_match, w_used, expired_ways(w_used, w_exp, w_inv, now),
+                       w_meta >> META_LRU_SHIFT)
 
 
 class RowCodec(NamedTuple):
@@ -272,17 +257,8 @@ def wave_plain(
     sel_wide = codec.wide_view(st_row)
     st = {k: torch.where(exists, getattr(sel_wide, k), 0) for k in _STATE_FIELDS}
 
-    bhv = batch.behavior
-    b_greg = (bhv & int(Behavior.DURATION_IS_GREGORIAN)) != 0
-    b_reset = (bhv & int(Behavior.RESET_REMAINING)) != 0
-    b_drain = (bhv & int(Behavior.DRAIN_OVER_LIMIT)) != 0
-
-    tok_state, tok_resp = _token_paths(batch, st, b_greg, b_reset, b_drain, exists)
-    lky_state, lky_resp = _leaky_paths(batch, st, b_greg, b_reset, b_drain, exists)
-
+    new_state, resp = both_paths(batch, st, exists)
     is_leaky = batch.algo == int(Algorithm.LEAKY_BUCKET)
-    new_state = {k: torch.where(is_leaky, lky_state[k], tok_state[k]) for k in tok_state}
-    resp = {k: torch.where(is_leaky, lky_resp[k], tok_resp[k]) for k in tok_resp}
 
     freed = ~new_state["used"]
     new_row = codec.pack_rows({
@@ -372,13 +348,7 @@ def scan_plain(
                    int(nows[t]), ways=ways, gpp=gpp)[0]
         for t in range(steps)
     ]
-    if not outs:  # no steps: (0, B) lanes and (0,) sums of the output dtypes
-        dtypes = {"status": torch.int8, "freed": torch.bool}
-        return DecideOutput(**{
-            f: torch.empty((0, b) if i < 8 else (0,), dtype=dtypes.get(f, I64), device=data.device)
-            for i, f in enumerate(DecideOutput._fields)
-        })
-    return DecideOutput(*(torch.stack(f) for f in zip(*outs)))
+    return stack_outputs(outs, b, data.device)
 
 
 def mask_to_local(shard: int, groups_per: int, batch: RequestBatch) -> RequestBatch:

@@ -1,12 +1,14 @@
 """Direct state injection into the slot table (the AddCacheItem analog),
 and the residency probe of the store path.
 
-The port of `gubernator_tpu/ops/inject.py` (`InjectBatch`), of the raw
-injects of the two layouts the port serves,
-`gubernator_tpu/ops/fused.py::_inject_fused_impl` and
-`gubernator_tpu/ops/narrow.py::_inject_narrow_impl`, and of their
-residency probes `probe_exists_fused` / `probe_exists_narrow`, as torch
-ops (XLA programs in the JAX package, not Pallas kernels). The GLOBAL
+The port of `gubernator_tpu/ops/inject.py` (`InjectBatch` and the
+`wide` layout's `_inject_impl` / `inject`), of the raw injects of the
+row layouts, `gubernator_tpu/ops/fused.py::_inject_fused_impl` and
+`gubernator_tpu/ops/narrow.py::_inject_narrow_impl` (`inject_rows`),
+and of their residency probes `probe_exists_fused` /
+`probe_exists_narrow` (`probe_rows`), as torch ops (XLA programs in the
+JAX package, not Pallas kernels). The packed layout's inject is in
+ops/packed.py. The GLOBAL
 replica tier lands an authoritative push on every replica with the
 inject (parallel/ici.py `make_inject_replicas`); the store path's
 read-through probes a wave's keys (`probe_rows`) and injects the
@@ -18,9 +20,10 @@ expired > least recently used) and overwrites or creates the entry:
 stamp and expiry from the item, lru = now. The caller guarantees
 distinct groups among the active lanes of one call (the engine's wave
 assembler). The table is updated IN PLACE, where JAX returns a new one:
-one `index_add_` of each active lane's row delta (new row minus old, an
-exact int64 round trip), so an inactive lane writes nothing and needs
-no host-side mask.
+on a row layout one `index_add_` of each active lane's row delta (new
+row minus old, an exact int64 round trip), so an inactive lane writes
+nothing and needs no host-side mask; on the wide layout one write per
+column, a slot past the end dropped (`decide.scatter`).
 """
 
 from __future__ import annotations
@@ -30,7 +33,9 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from gubernator_tpu_torch.ops.decide import _choose_slot, scatter
 from gubernator_tpu_torch.ops.fused import RowCodec, probe_ways
+from gubernator_tpu_torch.ops.layout import SlotTable
 from gubernator_tpu_torch.ops.packed import META_USED, _pack_meta
 
 I64 = torch.int64
@@ -137,3 +142,26 @@ def probe_rows(codec: RowCodec, data: torch.Tensor, key_hi: torch.Tensor,
     live = (w_used & ~w_expired & (rows[..., c_khi] == key_hi[:, None])
             & (rows[..., c_klo] == key_lo[:, None]))
     return live.any(dim=1) & valid
+
+
+def _inject_impl(table: SlotTable, items: InjectBatch, now: int, ways: int = 8):
+    """Authoritative rows into a wide table, in place (`_inject_impl`):
+    each item's slot by the decide's probe (`decide._choose_slot`: match
+    or insert), lru = now. Returns (evicted_hi, evicted_lo)."""
+    now = int(now)
+    slot, _exists, _ev, evicted_hi, evicted_lo = _choose_slot(table, items, now, ways)
+    scatter(dict(
+        **{f: getattr(items, f) for f in ("key_hi", "key_lo", "algo", "status", "limit",
+                                          "duration", "remaining", "stamp", "expire_at",
+                                          "invalid_at", "burst")},
+        used=torch.ones_like(items.active),
+        lru=torch.full_like(items.key_hi, now),
+    ), table, torch.where(items.active, slot, table.num_slots))
+    return evicted_hi, evicted_lo
+
+
+def inject(table: SlotTable, items: InjectBatch, now, ways: int = 8):
+    """(table, evicted_hi, evicted_lo), the wide table updated in place:
+    the displaced occupant's key per lane, (0, 0) where none, as
+    DecideOutput's evicted keys."""
+    return (table, *_inject_impl(table, items, now, ways))

@@ -12,7 +12,8 @@ Same fields, dtypes and meaning as `gubernator_tpu/ops/layout.py`:
 
 `SlotTable` (one column per field) is the snapshot format every layout
 converts to and from, so snapshots move between this package and the
-JAX package unchanged.
+JAX package unchanged. It is also the `wide` layout's table itself
+(ops/decide.py, `SlotTable.create`).
 """
 
 from __future__ import annotations
@@ -47,12 +48,34 @@ class SlotTable(NamedTuple):
     def num_slots(self) -> int:
         return self.key_hi.shape[0]
 
+    @staticmethod
+    def create(num_groups: int, ways: int = DEFAULT_WAYS, device="cuda") -> "SlotTable":
+        """The `wide` layout's empty table of num_groups x ways slots."""
+        n = num_groups * ways
+        return SlotTable(*(torch.zeros((n,), dtype=_TORCH_DTYPES[np.dtype(SLOT_DTYPES[f])],
+                                       device=device) for f in SlotTable._fields))
+
 
 # numpy dtype of every SlotTable column (the snapshot dict's format)
 SLOT_DTYPES = {
     f: (np.bool_ if f == "used" else np.int8 if f in ("algo", "status") else np.int64)
     for f in SlotTable._fields
 }
+
+
+def wide_on_device(wide: SlotTable, device=None) -> SlotTable:
+    """A wide image (numpy arrays or tensors) as a `wide` table on
+    `device` (default: where its columns are): each column a COPY in the
+    column's dtype, so that a decide updating the table in place never
+    writes into the caller's arrays."""
+    cols = []
+    for f, c in zip(SlotTable._fields, wide):
+        dt = _TORCH_DTYPES[np.dtype(SLOT_DTYPES[f])]
+        if torch.is_tensor(c):
+            cols.append(c.to(device=device or c.device, dtype=dt, copy=True))
+        else:
+            cols.append(torch.tensor(np.asarray(c), dtype=dt, device=device))
+    return SlotTable(*cols)
 
 
 class RequestBatch(NamedTuple):

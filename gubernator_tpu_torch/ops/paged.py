@@ -17,8 +17,18 @@ the plain version with the same (Pallas) semantics. The runtime pager
 (`runtime/pager.py`) promotes a wave's pages before the wave runs, so
 sentinel lanes carry no live traffic.
 
+The wide and packed layouts are structs of columns served by torch ops
+(ops/decide.py, ops/packed.py), XLA programs in the JAX package: their
+decide follows the JAX package's XLA branch (`_xlate`, then the flat
+layout's op), translating the batch's groups through the map first
+(`fused.xlate_groups`; a lane on a page that is not resident gets the
+sentinel group, one past the frames, whose gathers clamp and whose
+writes drop, as in JAX); their scan translates every step's groups at
+once (the map does not change inside a scan). Their page moves copy
+column by column through the layout's `to_wide` / `from_wide`.
+
 Page moves are positional, so demote -> promote is an identity on
-table state. A demote reads a frame with `read_page`: its packed rows
+table state. A row layout's demote reads a frame with `read_page`: its packed rows
 (one contiguous span of the layout's table), transposed on the card so
 that each column is contiguous, go to a reused pinned host buffer in
 ONE device-to-host copy, and are unpacked to wide host rows on the host
@@ -50,7 +60,12 @@ import torch
 
 from gubernator_tpu_torch.ops import cuda_decide, fused
 from gubernator_tpu_torch.ops.inject import inject_rows
-from gubernator_tpu_torch.ops.kernels import BYTES_PER_SLOT, get_kernels
+from gubernator_tpu_torch.ops.kernels import (
+    BYTES_PER_SLOT,
+    KERNEL_LAYOUTS,
+    get_kernels,
+    torch_op_wave,
+)
 from gubernator_tpu_torch.ops.layout import SlotTable
 
 
@@ -152,42 +167,92 @@ def make_paged_kernels(
     num_logical_pages = -(-num_groups // gpp)  # ceil
     num_phys_groups = num_phys_pages * gpp
 
+    def _check_ways(w):
+        if w != ways:
+            raise ValueError(f"this paged table has {ways} ways, not {w}")
+
+    def _phys(pt, group):
+        return fused.xlate_groups(pt.page_map, group, gpp, num_phys_groups)
+
+    def _probe_exists(pt, key_hi, key_lo, group, now, w=ways):
+        _check_ways(w)
+        return base.probe_exists(pt.data, key_hi, key_lo, _phys(pt, group), now, ways)
+
+    def _extract_page(pt, pp):
+        dev = pt.page_map.device
+        slots = int(pp) * page_slots + torch.arange(page_slots, dtype=torch.int64, device=dev)
+        return base.gather_rows(pt.data, slots)
+
+    build = _row_ops if layout in KERNEL_LAYOUTS else _column_ops
+    ops = build(layout, base, ways, gpp, page_slots, num_phys_groups, _check_ways, _phys)
+
+    def _create(*_a, **_k) -> PagedTable:
+        return PagedTable(
+            data=base.create(num_phys_groups, ways, device),
+            page_map=torch.full((num_logical_pages,), -1, dtype=torch.int32, device=device),
+        )
+
+    def _from_wide(*_a, **_k):
+        raise NotImplementedError(
+            "paged tables restore page by page (write_page), not from one "
+            "flat wide image: see DeviceEngine.restore's paged path"
+        )
+
+    return PagedKernels(
+        layout=layout,
+        create=_create,
+        decide=ops["decide"],
+        decide_scan=ops["decide_scan"],
+        run_wave=ops["run_wave"],
+        load=base.load,
+        to_wide=lambda pt: base.to_wide(pt.data),
+        from_wide=_from_wide,
+        bytes_per_slot=BYTES_PER_SLOT[layout],
+        inject=ops["inject"],
+        probe_exists=_probe_exists,
+        gather_rows=lambda pt, slots: base.gather_rows(pt.data, slots),
+        bind_page=ops["bind_page"],
+        unbind_page=ops["unbind_page"],
+        extract_page=_extract_page,
+        read_page=ops["read_page"],
+        write_page=ops["write_page"],
+        ways=ways,
+        groups_per_page=gpp,
+        page_slots=page_slots,
+        num_phys_pages=num_phys_pages,
+        num_logical_pages=num_logical_pages,
+        num_logical_groups=num_groups,
+    )
+
+
+def _row_ops(layout, base, ways, gpp, page_slots, num_phys_groups, check_ways, phys) -> dict:
+    """The paged ops of a row layout (fused, narrow): the decide in the
+    hand kernel with the map lookup inside it, one-copy page moves."""
+
     def _frame(pt, pp) -> torch.Tensor:
         start = int(pp) * page_slots
         return pt.data.data[start:start + page_slots]
 
     def _decide(pt, batch, now, w=ways):
-        if w != ways:
-            raise ValueError(f"this paged table has {ways} ways, not {w}")
+        check_ways(w)
         return cuda_decide.decide_paged(pt, batch, now, layout=layout, ways=ways, gpp=gpp)
 
     def _decide_scan(pt, batches, nows, w=ways):
-        if w != ways:
-            raise ValueError(f"this paged table has {ways} ways, not {w}")
+        check_ways(w)
         return cuda_decide.decide_scan_paged(
             pt, batches, nows, layout=layout, ways=ways, gpp=gpp
         )
 
     def _run_wave(pt, flush, w, now, w_=ways):
-        if w_ != ways:
-            raise ValueError(f"this paged table has {ways} ways, not {w_}")
+        check_ways(w_)
         flush.launch(w, pt.data.data, pt.page_map, now, layout=layout, ways=ways, gpp=gpp)
         return pt
 
-    def _phys(pt, group):
-        return fused.xlate_groups(pt.page_map, group, gpp, num_phys_groups)
-
     def _inject(pt, items, now, w=ways):
-        if w != ways:
-            raise ValueError(f"this paged table has {ways} ways, not {w}")
-        phys = _phys(pt, items.group)
-        items = items._replace(group=phys, active=items.active & (phys < num_phys_groups))
+        check_ways(w)
+        g = phys(pt, items.group)
+        items = items._replace(group=g, active=items.active & (g < num_phys_groups))
         return (pt, *inject_rows(cuda_decide.CODECS[layout], pt.data.data, items, now, ways))
-
-    def _probe_exists(pt, key_hi, key_lo, group, now, w=ways):
-        if w != ways:
-            raise ValueError(f"this paged table has {ways} ways, not {w}")
-        return base.probe_exists(pt.data, key_hi, key_lo, _phys(pt, group), now, ways)
 
     def _bind_page(pt, lp, pp):
         _frame(pt, pp).zero_()
@@ -200,11 +265,6 @@ def make_paged_kernels(
         _frame(pt, pp).zero_()
         pt.page_map[int(lp)] = -1
         return pt
-
-    def _extract_page(pt, pp):
-        dev = pt.page_map.device
-        slots = int(pp) * page_slots + torch.arange(page_slots, dtype=torch.int64, device=dev)
-        return base.gather_rows(pt.data, slots)
 
     # Pinned host staging of page moves, (columns, page_slots), made at
     # the first move and reused: page ops run under the owning engine's
@@ -253,40 +313,58 @@ def make_paged_kernels(
         pt.page_map[int(lp)] = int(pp)
         return pt
 
-    def _create(*_a, **_k) -> PagedTable:
-        return PagedTable(
-            data=base.create(num_phys_groups, ways, device),
-            page_map=torch.full((num_logical_pages,), -1, dtype=torch.int32, device=device),
-        )
+    return dict(decide=_decide, decide_scan=_decide_scan, run_wave=_run_wave, inject=_inject,
+                bind_page=_bind_page, unbind_page=_unbind_page, read_page=_read_page,
+                write_page=_write_page)
 
-    def _from_wide(*_a, **_k):
-        raise NotImplementedError(
-            "paged tables restore page by page (write_page), not from one "
-            "flat wide image: see DeviceEngine.restore's paged path"
-        )
 
-    return PagedKernels(
-        layout=layout,
-        create=_create,
-        decide=_decide,
-        decide_scan=_decide_scan,
-        run_wave=_run_wave,
-        load=base.load,
-        to_wide=lambda pt: base.to_wide(pt.data),
-        from_wide=_from_wide,
-        bytes_per_slot=BYTES_PER_SLOT[layout],
-        inject=_inject,
-        probe_exists=_probe_exists,
-        gather_rows=lambda pt, slots: base.gather_rows(pt.data, slots),
-        bind_page=_bind_page,
-        unbind_page=_unbind_page,
-        extract_page=_extract_page,
-        read_page=_read_page,
-        write_page=_write_page,
-        ways=ways,
-        groups_per_page=gpp,
-        page_slots=page_slots,
-        num_phys_pages=num_phys_pages,
-        num_logical_pages=num_logical_pages,
-        num_logical_groups=num_groups,
-    )
+def _column_ops(layout, base, ways, gpp, page_slots, num_phys_groups, check_ways,
+                phys) -> dict:
+    """The paged ops of a struct-of-columns layout (wide, packed), torch
+    ops as the JAX package's XLA branch runs them: the groups translated
+    through the map, then the flat layout's op; page moves column by
+    column through the layout's to_wide / from_wide."""
+
+    def _frames(pt, pp):
+        start = int(pp) * page_slots
+        return type(pt.data)(*(c[start:start + page_slots] for c in pt.data))
+
+    def _decide(pt, batch, now, w=ways):
+        check_ways(w)
+        _t, out = base.decide(pt.data, batch._replace(group=phys(pt, batch.group)), now, ways)
+        return pt, out
+
+    def _decide_scan(pt, batches, nows, w=ways):
+        check_ways(w)
+        _t, outs = base.decide_scan(
+            pt.data, batches._replace(group=phys(pt, batches.group)), nows, ways)
+        return pt, outs
+
+    def _inject(pt, items, now, w=ways):
+        check_ways(w)
+        _t, ehi, elo = base.inject(pt.data, items._replace(group=phys(pt, items.group)),
+                                   now, ways)
+        return pt, ehi, elo
+
+    def _rebind(pt, lp, pp, to):
+        # zero the frame: key pruning scans the PHYSICAL table
+        for c in _frames(pt, pp):
+            c.zero_()
+        pt.page_map[int(lp)] = to
+        return pt
+
+    def _read_page(pt, pp) -> Dict[str, np.ndarray]:
+        wide = base.to_wide(_frames(pt, pp))
+        return {f: getattr(wide, f).to("cpu", copy=True).numpy() for f in SlotTable._fields}
+
+    def _write_page(pt, lp, pp, rows_wide):
+        rows = base.from_wide(SlotTable(*rows_wide), pt.page_map.device)
+        for dst, src in zip(_frames(pt, pp), rows):
+            dst.copy_(src)
+        pt.page_map[int(lp)] = int(pp)
+        return pt
+
+    return dict(decide=_decide, decide_scan=_decide_scan, run_wave=torch_op_wave(_decide),
+                inject=_inject, bind_page=lambda pt, lp, pp: _rebind(pt, lp, pp, int(pp)),
+                unbind_page=lambda pt, lp, pp: _rebind(pt, lp, pp, -1),
+                read_page=_read_page, write_page=_write_page)

@@ -54,6 +54,7 @@ from gubernator_tpu_torch.models.bucket import FIXED_SHIFT
 from gubernator_tpu_torch.ops import cuda_decide, fused, narrow
 from gubernator_tpu_torch.ops.inject import InjectBatch, inject_rows
 from gubernator_tpu_torch.ops.kernels import get_kernels
+from gubernator_tpu_torch.parallel.mesh import check_mesh_layout
 from gubernator_tpu_torch.ops.layout import DecideOutput, SlotTable
 from gubernator_tpu_torch.ops.packed import META_USED
 
@@ -115,7 +116,7 @@ def create_ici_state(mesh, num_slots: int, ways: int = 1,
     """Empty replicas of `num_slots` slots at `ways` ways on every shard
     of `mesh`, on the mesh's device."""
     n_dev, _g, _gp = _geometry(mesh, num_slots, ways)
-    get_kernels(layout)  # validates the layout
+    check_mesh_layout(layout)
     dev = mesh.device
     ncols = cuda_decide.CODECS[layout].ncols
     return IciState(
@@ -192,6 +193,7 @@ def make_replica_decide(mesh, num_slots: int, ways: int = 1, layout: str = DEFAU
     that replica's pending at the slot the decide placed the key in.
     The state is updated in place; the outputs are the psum over
     replicas."""
+    check_mesh_layout(layout)
     n_dev, num_rgroups, _gp = _geometry(mesh, num_slots, ways)
 
     def decide_fn(state: IciState, batch, home, now):
@@ -236,6 +238,7 @@ def make_inject_replicas(mesh, num_slots: int, ways: int = 1, layout: str = DEFA
     an InjectBatch on the state's device, its groups replica groups. One
     inject over the stack: lane i of replica d at group d *
     num_rgroups + group, all distinct."""
+    check_mesh_layout(layout)
     n_dev, num_rgroups, _gp = _geometry(mesh, num_slots, ways)
     codec = cuda_decide.CODECS[layout]
     c_khi, c_klo = codec.probe[0], codec.probe[1]
@@ -502,6 +505,7 @@ def make_sync_step(mesh, num_slots: int, ways: int = 1, layout: str = DEFAULT_LA
     the constant the merge would give (no group active when capped,
     every group merged when not), made on the host: nothing to read
     back."""
+    check_mesh_layout(layout)
     n_dev, G, groups_per = _geometry(mesh, num_slots, ways)
     W = ways
     C = G if max_sync_groups is None else max(1, min(int(max_sync_groups), G))

@@ -52,6 +52,20 @@ from gubernator_tpu_torch.ops.kernels import get_kernels
 # The multi-device tier defaults to the fused layout, as the single-chip
 # engine does.
 DEFAULT_LAYOUT = "fused"
+# The layouts the mesh tier serves in this package: those of the sharded
+# hand kernel. Wide and packed are served on one table (DeviceEngine)
+# only; ROADMAP.md queues them here.
+MESH_LAYOUTS = tuple(cuda_decide.CODECS)
+
+
+def check_mesh_layout(layout: str) -> None:
+    """Refuse a layout the mesh tier does not serve, naming it."""
+    get_kernels(layout)  # an unknown layout: the registry's error
+    if layout not in MESH_LAYOUTS:
+        raise ValueError(
+            f"layout {layout!r}: the mesh tier serves {MESH_LAYOUTS} in this "
+            f"package (a single table, DeviceEngine, serves {layout!r})"
+        )
 
 
 class Mesh(NamedTuple):
@@ -116,6 +130,7 @@ def create_sharded_table(mesh: Mesh, num_groups: int, ways: int = 8,
     contiguous groups per shard (num_groups must divide by the mesh
     size): one (N, C) tensor, shard d at rows [d * n_local, (d+1) *
     n_local)."""
+    check_mesh_layout(layout)
     if num_groups % mesh.size:
         raise ValueError(f"num_groups {num_groups} must divide by mesh size {mesh.size}")
     return get_kernels(layout).create(num_groups, ways, mesh.device)
@@ -126,6 +141,7 @@ def make_sharded_decide(mesh: Mesh, num_groups: int, ways: int = 8,
     """decide(table, batch, now) -> (table, DecideOutput), the table
     sharded over `mesh` and updated in place, the batch replicated: one
     sharded wave (one kernel launch on a card)."""
+    check_mesh_layout(layout)
     if num_groups % mesh.size:
         raise ValueError(f"num_groups {num_groups} must divide by mesh size {mesh.size}")
     n = num_groups * ways
@@ -152,6 +168,7 @@ def make_sharded_inject(mesh: Mesh, num_groups: int, ways: int = 8,
     groups_per is the inject at global group g, and the sum of the
     evicted keys is the owner's: one inject over the whole table with
     the lanes no shard owns made inactive."""
+    check_mesh_layout(layout)
     if num_groups % mesh.size:
         raise ValueError(f"num_groups {num_groups} must divide by mesh size {mesh.size}")
     codec = cuda_decide.CODECS[layout]
@@ -202,6 +219,7 @@ def make_mesh_kernels(mesh: Mesh, layout: str, num_groups: int, ways: int = 8, *
     shard of its frame, and a lane on a page that is not resident (no
     owner) injects nothing, so the paged table's translated inject is
     the ownership-masked one."""
+    check_mesh_layout(layout)
     n_dev = mesh.size
     if num_groups % n_dev:
         raise ValueError(f"num_groups {num_groups} must divide by mesh size {n_dev}")

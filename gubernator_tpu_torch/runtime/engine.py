@@ -4,8 +4,9 @@ The port of `gubernator_tpu/runtime/engine.py` (`MeshEngine`, and
 `DeviceEngine`, the engine at mesh shape (1,)): the object path, fed by
 a pump, and the columnar path (`check_columns`), fed by the serving
 edge (service/fastpath.py). Requests accumulate into waves; one decide
-call per wave updates the table in place on the device (a CUDA kernel
-on a CUDA table). The topology (runtime/topology.py) binds the kernels:
+call per wave updates the table in place on the device (the CUDA kernel
+on a CUDA table of the fused or narrow layout; torch ops for the wide
+and packed layouts). The topology (runtime/topology.py) binds the kernels:
 one table's, or the owner-sharded mesh's (runtime/ici_engine.py
 IciEngine).
 
@@ -148,7 +149,13 @@ from gubernator_tpu_torch.ops.inject import INJECT_DTYPES, InjectBatch
 from gubernator_tpu_torch.ops.admission import admission_oracle
 from gubernator_tpu_torch.ops.census import census_oracle
 from gubernator_tpu_torch.metrics import engine_histograms
-from gubernator_tpu_torch.ops.kernels import BYTES_PER_SLOT, LAYOUTS, get_admission, get_census
+from gubernator_tpu_torch.ops.kernels import (
+    BYTES_PER_SLOT,
+    KERNEL_LAYOUTS,
+    LAYOUTS,
+    get_admission,
+    get_census,
+)
 from gubernator_tpu_torch.ops.layout import (
     BATCH_DTYPES,
     SLOT_DTYPES,
@@ -187,7 +194,8 @@ class EngineConfig:
     # Where the table lives. "cuda" (the default) requires a GPU and
     # raises without one; pass "cpu" to run the plain version on the CPU.
     device: str = "cuda"
-    layout: str = "fused"  # "fused" or "narrow"
+    # "wide", "packed", "fused" or "narrow" (ops/kernels.py LAYOUTS)
+    layout: str = "fused"
     # ---- observatories (docs/monitoring.md "Table census", "Admission") ----
     # TTL of the cached census snapshot: at most one census scan per TTL.
     census_ttl_s: float = 5.0
@@ -529,8 +537,11 @@ class MeshEngine:
         self.metrics.hotkeys.configure(int(cfg.hotkeys_k or 0))
         self.metrics.hotkeys.set_resolver(self.key_string)
         # Which decide serves (gubernator_kernel_backend) and the team
-        # kernel's lanes per block (gubernator_pallas_block_lanes).
-        on_card = self.device.type == "cuda"
+        # kernel's lanes per block (gubernator_pallas_block_lanes): the
+        # hand kernel on a card for fused and narrow; torch ops for wide
+        # and packed on either device, as the JAX engine reads "xla" for
+        # them under GUBER_KERNEL=pallas.
+        on_card = self.device.type == "cuda" and cfg.layout in KERNEL_LAYOUTS
         self.kernel_backend = "cuda" if on_card else "torch"
         self.pallas_block = cuda_decide.lanes_per_block(cfg.ways) if on_card else 0
         # Liveness (runtime/watchdog.py): set a Watchdog here and the

@@ -52,6 +52,7 @@ from gubernator_tpu_torch.api.keys import key_hash128_batch
 from gubernator_tpu_torch.models.bucket import FIXED_SHIFT
 from gubernator_tpu_torch.ops.inject import InjectBatch
 from gubernator_tpu_torch.runtime.engine import MeshEngine, _read_back, _WaveAssembler
+from gubernator_tpu_torch.parallel.mesh import check_mesh_layout
 from gubernator_tpu_torch.runtime.topology import IciMeshTopology
 from gubernator_tpu_torch.utils import clock as _clock
 
@@ -89,7 +90,7 @@ class IciEngineConfig:
     census_thresholds: tuple = (1, 4, 16)
     census_heatmap_width: int = 64
     admission_ttl_s: float = 5.0
-    layout: str = "fused"  # both tiers
+    layout: str = "fused"  # both tiers: "fused" or "narrow" (parallel/mesh.py MESH_LAYOUTS)
     # Groups a sync tick merges at most: the groups whose content
     # diverges across replicas or that hold pending deltas or expired
     # rows; the rest carries to the next tick (`sync_backlog`). None
@@ -123,6 +124,7 @@ class IciEngine(MeshEngine):
     def __init__(self, config: Optional[IciEngineConfig] = None,
                  now_fn: Callable[[], int] = _clock.now_ms):
         cfg = config if config is not None else IciEngineConfig()
+        check_mesh_layout(cfg.layout)  # wide and packed: one table only
         topo = IciMeshTopology(cfg.devices)
         n_dev = topo.n_dev
         if cfg.num_groups % n_dev:

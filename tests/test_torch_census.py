@@ -2,10 +2,10 @@
 
 `gubernator_tpu_torch.ops.census` / `ops.admission` (torch ops) against
 `gubernator_tpu.ops.census.make_census` / `ops.admission.make_admission`
-on the same seeded wide tables, fused and narrow, flat and a paged
-table's physical frames, plus empty, full, clamped and bucket-edge
-tables (as tests/test_table_census.py and tests/test_admission.py pin
-the JAX programs); the port's numpy oracles against JAX's; each WaveScan
+on the same seeded wide tables, at all four layouts (wide, packed,
+fused, narrow), flat and a paged table's physical frames, plus empty,
+full, clamped and bucket-edge tables (as tests/test_table_census.py and
+tests/test_admission.py pin the JAX programs); the port's numpy oracles against JAX's; each WaveScan
 sum of the plain wave and of the kernel's lane code built for the host
 against the oracles over the rows the wave wrote (as
 tests/test_kernel_fuzz.py `test_pallas_wavescan_matches_scans`); and the
@@ -45,7 +45,9 @@ from test_torch_paged import GPP, SCRAMBLE, paged_waves, port_table
 NOW = 1_753_700_000_000
 GROUPS = 64
 WAYS = 8
-LAYOUTS = ("fused", "narrow")
+LAYOUTS = ("wide", "packed", "fused", "narrow")
+# the layouts of the hand kernel, whose WaveScan sums the oracles check
+KERNEL_LAYOUTS = ("fused", "narrow")
 
 
 def random_wide(rng, groups=GROUPS, ways=WAYS, density=0.5, now=NOW):
@@ -243,7 +245,7 @@ def _assert_scan_is_oracle(scan, rows, now, tag):
 
 
 @pytest.mark.parametrize("paged_table", [False, True])
-@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("layout", KERNEL_LAYOUTS)
 def test_wavescan_sums_equal_the_oracles(layout, paged_table):
     """Each wave's five WaveScan sums, from the plain wave and from the
     kernel's lane code built for the host, equal the admission and
@@ -328,7 +330,7 @@ def _without_wall_clock(snap):
 
 @pytest.mark.parametrize("mesh,layout,paged_table", [
     (False, "fused", False), (False, "narrow", True), (True, "narrow", False),
-    (True, "fused", True),
+    (True, "fused", True), (False, "wide", True), (False, "packed", False),
 ])
 def test_engine_snapshots_match_jax(mesh, layout, paged_table):
     """table_census and admission_snapshot of the port's engine equal the

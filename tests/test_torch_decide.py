@@ -347,7 +347,8 @@ def test_single_requests_match_oracle(seed, path):
 
 def test_registry_dispatches_by_device():
     """get_kernels("fused").decide on a CPU table is the plain version
-    and launches nothing; a layout the port does not serve is refused."""
+    and launches nothing; a layout name the JAX package does not know is
+    refused (the port serves all four of its layouts)."""
     K = get_kernels("fused")
     before = sum(cuda_decide.CONFIG_LAUNCHES.values())
     wave, now = _waves(13, 1)[0]
@@ -359,7 +360,7 @@ def test_registry_dispatches_by_device():
     assert torch.equal(o1.remaining, o2.remaining)
     assert sum(cuda_decide.CONFIG_LAUNCHES.values()) == before
     with pytest.raises(ValueError):
-        get_kernels("wide")
+        get_kernels("columnar")
 
 
 def test_wrapper_refuses_bad_operands():

@@ -99,6 +99,9 @@ def test_source_imports_no_jax_or_reference_package(path):
     "gubernator_tpu_torch.utils.timeseries",
     "gubernator_tpu_torch.service.slo",
     "gubernator_tpu_torch.service.overload",
+    "gubernator_tpu_torch.ops.decide",
+    "gubernator_tpu_torch.ops.packed",
+    "gubernator_tpu_torch.ops.kernels",
 ])
 def test_slice_modules_are_checked(module):
     """The narrow layout, the paged table, the pager, the bench, the
@@ -108,8 +111,9 @@ def test_slice_modules_are_checked(module):
     inject, the GLOBAL replica tier, the Store and Loader seams, and
     the observability core (the metrics registry with its exposition,
     the flight recorder, the watchdog, device memory, decision
-    provenance), and the overload control plane with the SLO
-    observatory and its time-series rings are among the modules
+    provenance), the overload control plane with the SLO observatory
+    and its time-series rings, and the wide and packed layouts with the
+    registry that serves all four are among the modules
     imported above with jax, gubernator_tpu and prometheus_client
     blocked."""
     assert module in _port_modules()
